@@ -1,0 +1,103 @@
+"""The port's hand-written CUDA kernel and the chain on the card, against
+the plain PyTorch twins. Every test needs a CUDA GPU and skips without
+one. This file imports no JAX, so on a machine without it run:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerance kernel vs plain: rtol 1e-5, atol 1e-3 on extrinsics and on the
+offset-free boundary metrics (both perform the same float32 operations;
+the kernel's compiler may contract or reorder them). Decisions of the
+decoder and the chain are equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from srsue_tpu.phy import crc as crcmod
+from srsue_tpu.phy.cell import Cell
+from srsue_tpu_torch.entry import chain, make_waveforms
+from srsue_tpu_torch.kernels import bcjr
+from srsue_tpu_torch.phy import ra, turbo
+from srsue_tpu_torch.phy.pdsch import PdschCodec
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from srsue_tpu_torch.utils.device import require_cuda
+
+    return require_cuda()
+
+
+def _half_args(k, lw, blocks, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    w = k // lw
+
+    def rnd(*shape, scale):
+        return (torch.randn(*shape, generator=g) * scale).to(device)
+
+    return (rnd(blocks, k, scale=6.0), rnd(blocks, k, scale=6.0), rnd(blocks, k, scale=3.0),
+            rnd(blocks, 3, scale=6.0), rnd(blocks, 3, scale=6.0),
+            rnd(blocks, w, 8, scale=5.0), rnd(blocks, w, 8, scale=5.0), lw)
+
+
+@pytest.mark.parametrize("k,lw,blocks", [
+    (5824, 64, 40), (512, 64, 64), (432, 48, 64), (256, 256, 64), (40, 40, 7)])
+def test_kernel_matches_plain(cuda_device, k, lw, blocks):
+    args = _half_args(k, lw, blocks, cuda_device, k)
+    before = bcjr.bcjr_half_windowed.launches
+    got = bcjr.bcjr_half_windowed(*args)
+    assert bcjr.bcjr_half_windowed.launches == before + 1
+    ref = bcjr.bcjr_half_windowed_plain(*args)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a - a.amax(-1, keepdim=True),
+                                   b - b.amax(-1, keepdim=True), rtol=1e-5, atol=1e-3)
+
+
+def test_wrapper_rejects_cpu_cuda_mix(cuda_device):
+    lin = torch.zeros(4, 64, device=cuda_device)
+    a0 = torch.zeros(4, 8)
+    with pytest.raises(ValueError):
+        bcjr.half_windowed(lin, lin, a0, a0)
+
+
+def test_decode_on_card_matches_cpu(cuda_device):
+    k = 512
+    rng = np.random.default_rng(1)
+    m = np.zeros((k, 24), np.uint8)
+    m[:k - 24] = crcmod.crc_matrix(k - 24, "24A")
+    m[k - 24:] = np.eye(24, dtype=np.uint8)
+    llrs = []
+    for _ in range(4):
+        msg = crcmod.attach(rng.integers(0, 2, k - 24).astype(np.uint8), "24A")
+        x = 1.0 - 2.0 * turbo.encode(msg).astype(np.float32)
+        x = x + rng.standard_normal(x.shape).astype(np.float32) * 0.9
+        llrs.append(2 * x / 0.81)
+    llrs = np.stack(llrs).astype(np.float32)
+    for early_exit in (True, False):
+        cpu = turbo.decode(torch.as_tensor(llrs), k, 4, crc_mat=m, early_exit=early_exit)
+        gpu = turbo.decode(torch.as_tensor(llrs, device=cuda_device), k, 4, crc_mat=m,
+                           early_exit=early_exit)
+        for x, y in zip(gpu, cpu):
+            torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_prb,mcs", [(6, 5), (25, 17)])
+def test_chain_on_card_matches_cpu(cuda_device, n_prb, mcs):
+    cell = Cell(n_prb=n_prb, cell_id=17)
+    grant = ra.dl_grant(n_prb, mcs)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        codec = PdschCodec(cell, grant, 0x1234, 1, device=dev)
+        noisy, payloads = make_waveforms(cell, codec, np.random.default_rng(0), 3, 20.0)
+        out[str(dev)] = [v.cpu() for v in chain(cell, codec, 1)(torch.as_tensor(noisy, device=dev))]
+    gpu, cpu = out[str(cuda_device)], out["cpu"]
+    assert cpu[1].all() and gpu[1].all()
+    for x, y in zip(gpu, cpu):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    np.testing.assert_array_equal(gpu[0].numpy(), payloads)
