@@ -2,8 +2,8 @@
 
 Counterpart of ``__graft_entry__.entry()``: OFDM demod -> CRS channel
 estimate -> ZF -> PDSCH extract / demap / descramble -> rate dematch ->
-turbo decode (8 iterations, CRC early exit or all masked iterations) ->
-TB CRC, batched over subframes. Configuration: 100 PRB SISO, cell 42,
+turbo decode (8 iterations: CRC early exit, all masked iterations, or
+forced) -> TB CRC, batched over subframes. Configuration: 100 PRB SISO, cell 42,
 subframe 6, MCS 28 (64QAM, TBS 75376, 13 code blocks of K=5824).
 """
 
@@ -49,12 +49,15 @@ def chain(cell: Cell, codec: PdschCodec, subframe: int):
     return fn
 
 
-def flagship(device: str | torch.device = "cuda", early_exit: bool = True):
-    """(cell, codec) of the flagship configuration on `device`."""
+def flagship(device: str | torch.device = "cuda", early_exit: bool = True,
+             kernel: str = "r2max", forced: bool = False):
+    """(cell, codec) of the flagship configuration on `device`; `kernel`,
+    `early_exit` and `forced` choose the turbo decoder's form (PdschCodec)."""
     cell = Cell(n_prb=N_PRB, cell_id=CELL_ID)
     codec = PdschCodec(cell, ra.dl_grant(cell.n_prb, MCS), rnti=RNTI,
                        subframe=SUBFRAME, cfi=1, n_turbo_iters=8,
-                       early_exit=early_exit, device=device)
+                       early_exit=early_exit, device=device, kernel=kernel,
+                       forced=forced)
     return cell, codec
 
 
@@ -76,10 +79,10 @@ def make_waveforms(cell: Cell, codec: PdschCodec, rng: np.random.Generator,
 
 def entry(device: str | torch.device = "cuda", batch: int = 1,
           snr_db: float = 26.0, early_exit: bool = True, seed: int = 0,
-          n_distinct: int = 1):
+          n_distinct: int = 1, kernel: str = "r2max", forced: bool = False):
     """(fn, (iq,), payloads): the flagship step, its input on `device` and
     the transmitted payloads [batch, tbs] (numpy) to check it against."""
-    cell, codec = flagship(device, early_exit)
+    cell, codec = flagship(device, early_exit, kernel, forced)
     noisy, payloads = make_waveforms(cell, codec, np.random.default_rng(seed),
                                      batch, snr_db, n_distinct)
     iq = torch.as_tensor(noisy, device=codec.device)

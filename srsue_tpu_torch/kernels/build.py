@@ -1,11 +1,13 @@
 """Build of the port's hand-written CUDA kernels.
 
-The sources ``srsue_tpu_torch/csrc/*.cu`` have a plain C interface and are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library
-under ``build/kernels/`` at the root of the checkout, at the first CUDA
-call, and loaded with ``ctypes``. Importing the package builds nothing.
-The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and a current build is reused.
+The sources ``srsue_tpu_torch/csrc/*.cu`` (with the shared header
+``bcjr_core.cuh``) have a plain C interface. At the first CUDA call each
+source is compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together; the objects are linked into one
+shared library under ``build/kernels/`` at the root of the checkout and
+loaded with ``ctypes``. Importing the package builds nothing. The
+library's name carries a hash of the sources and flags, so an edited source
+is rebuilt and a current build is reused.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the half-iteration instances, srsue_bcjr_half_<name>, share one signature;
+# srsue_bcjr_half_fused has its own
+HALF_KERNELS = ("r2max", "v2v3", "v4", "v5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +57,43 @@ def nvcc_path() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p = ctypes.c_void_p
-    lib.srsue_bcjr_half.argtypes = [p, p, p, p, p, p, p,
-                                    ctypes.c_longlong, ctypes.c_int, p]
-    lib.srsue_bcjr_half.restype = ctypes.c_int
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in HALF_KERNELS:
+        fn = getattr(lib, f"srsue_bcjr_half_{name}")
+        fn.argtypes = [p, p, p, p, p, p, p, ll, i, p]
+        fn.restype = ctypes.c_int
+    lib.srsue_bcjr_half_fused.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, i, i, p]
+    lib.srsue_bcjr_half_fused.restype = ctypes.c_int
+
+
+def _compile(nvcc: str, sources: list[Path], so: Path) -> str:
+    """One nvcc per source, run in parallel, then one link; returns the
+    compilers' output. Raises on the first failure."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "".join(logs))
+        tmp = so.with_name(f"{so.name}.{tag}")
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n" + "".join(logs))
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -65,22 +101,16 @@ def load() -> Library:
     """Compile (if needed) and load the kernel library."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     so = BUILD_DIR / f"libsrsue_torch_kernels_{h.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile(nvcc_path(), sources, so)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _bind(lib)
     return Library(lib, so, seconds, log)

@@ -36,11 +36,18 @@ def blk_crc_matrix(plan: segmentation.SegPlan, i: int, k: int) -> np.ndarray:
 
 
 class PdschCodec:
-    """Static-shape PDSCH encoder (host) and decoder (torch, on `device`)."""
+    """Static-shape PDSCH encoder (host) and decoder (torch, on `device`).
+
+    The turbo decoder runs ``n_turbo_iters`` iterations with the
+    half-iteration kernel instance ``kernel`` (``kernels.bcjr.KERNELS``):
+    masked, with converged blocks frozen and a synchronised stop once all
+    passed when ``early_exit``; or, when ``forced``, all iterations with no
+    per-iteration CRC (``early_exit`` is then not read)."""
 
     def __init__(self, cell: Cell, grant: DlGrant, rnti: int, subframe: int,
                  cfi: int = 1, n_turbo_iters: int = 8, early_exit: bool = True,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu", kernel: str = "r2max",
+                 forced: bool = False):
         plan = segmentation.plan(grant.tbs)
         re_idx = regrid.pdsch_re(cell, subframe, cfi, grant.prb_start, grant.n_prb)
         qm = grant.mod_order
@@ -58,25 +65,27 @@ class PdschCodec:
         blk_crc = {k: blk_crc_matrix(plan, i, k) for i, k in enumerate(plan.block_ks)}
         self._setup(cell, grant, re_idx, rm_idx, scr_pm1, blk_crc,
                     crc.crc_matrix(grant.tbs, "24A"), device, subframe,
-                    n_turbo_iters, early_exit)
+                    n_turbo_iters, early_exit, kernel, forced)
 
     @classmethod
     def from_arrays(cls, cell: Cell, grant: DlGrant, re_idx, rm_idx, scr_pm1,
                     blk_crc: dict, tb_crc, device: str | torch.device = "cpu",
                     *, subframe: int | None = None, n_turbo_iters: int = 8,
-                    early_exit: bool = True) -> "PdschCodec":
+                    early_exit: bool = True, kernel: str = "r2max",
+                    forced: bool = False) -> "PdschCodec":
         """A codec from given tables (e.g. the reference codec's ``re_idx``,
         ``rm_idx``, ``scr_pm1``, ``_blk_crc`` and ``_tb_crc``)."""
         self = cls.__new__(cls)
         self._setup(cell, grant, re_idx, rm_idx, scr_pm1, blk_crc, tb_crc,
-                    device, subframe, n_turbo_iters, early_exit)
+                    device, subframe, n_turbo_iters, early_exit, kernel, forced)
         return self
 
     def _setup(self, cell, grant, re_idx, rm_idx, scr_pm1, blk_crc, tb_crc,
-               device, subframe, n_turbo_iters, early_exit):
+               device, subframe, n_turbo_iters, early_exit, kernel, forced):
         dev = resolve(device)
         self.cell, self.grant, self.subframe = cell, grant, subframe
         self.n_turbo_iters, self.early_exit = n_turbo_iters, early_exit
+        self.kernel, self.forced = kernel, forced
         self.device = dev
         self.plan = p = segmentation.plan(grant.tbs)
         self.qm = grant.mod_order
@@ -160,13 +169,20 @@ class PdschCodec:
 
     def decode_blocks(self, groups: list[torch.Tensor]):
         """Softbuffer groups -> (hard [..., sum K] uint8, blk_ok [..., C]
-        bool, iters [..., C] int32): the turbo decode of every block."""
+        bool, iters [..., C] int32): the turbo decode of every block,
+        forced (``turbo.decode_forced``) or masked with CRC freezing
+        (``turbo.decode``), with the half-iteration kernel ``kernel``."""
         hards, oks, iters = [], [], []
         for (k, _, count, *_), buf in zip(self.groups, groups):
             lead = buf.shape[:-2]
-            hard, it, ok = turbo.decode(
-                buf.reshape(-1, 3, k + 4), k, self.n_turbo_iters,
-                self._blk_crc[k], early_exit=self.early_exit)
+            d = buf.reshape(-1, 3, k + 4)
+            if self.forced:
+                hard, it, ok = turbo.decode_forced(
+                    d, k, self.n_turbo_iters, self._blk_crc[k], kernel=self.kernel)
+            else:
+                hard, it, ok = turbo.decode(
+                    d, k, self.n_turbo_iters, self._blk_crc[k],
+                    early_exit=self.early_exit, kernel=self.kernel)
             hards.append(hard.reshape(lead + (count * k,)))
             oks.append(ok.reshape(lead + (count,)))
             iters.append(it.reshape(lead + (count,)))

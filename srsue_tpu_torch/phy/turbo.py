@@ -117,6 +117,32 @@ def _prev_tables():
     return prev[:, :, 0], prev[:, :, 1]
 
 
+@functools.lru_cache(maxsize=1)
+def radix4_tables():
+    """Two-step (radix-4) trellis tables, the counterpart of
+    ``turbo_pallas._radix4_tables``.
+
+    The branch metric of a two-step path (sp, u1, u2) is sign * (A_x +- B_y)
+    with A = (gpp_t, gpm_t), B = (gpp_t+1, gpm_t+1): key (x, y, d) names the
+    base (d = 0: A_x + B_y, d = 1: A_x - B_y) and sign = 1 - 2*u1.
+
+    Returns (fwd, paths): fwd[s2] lists the 4 (sp, key, sign) two-step
+    predecessors of s2; paths lists all 32 (sp, s2, key, sign, u1, u2)."""
+    ns, par, _ = _trellis()
+    paths = []
+    fwd = [[] for _ in range(8)]
+    for sp in range(8):
+        for u1 in (0, 1):
+            sm = int(ns[sp, u1])
+            for u2 in (0, 1):
+                s2 = int(ns[sm, u2])
+                key = (int(par[sp, u1] != u1), int(par[sm, u2] != u2), int(u1 != u2))
+                sign = 1 - 2 * u1
+                paths.append((sp, s2, key, sign, u1, u2))
+                fwd[s2].append((sp, key, sign))
+    return fwd, tuple(paths)
+
+
 def _rsc_encode(bits: np.ndarray):
     """One RSC over one block: (parity[k], tail_sys[3], tail_par[3])."""
     ns, par, term_u = _trellis()
@@ -211,49 +237,77 @@ def crc_ok(hard: torch.Tensor, crc_m: torch.Tensor) -> torch.Tensor:
     return syn.sum(-1) == 0
 
 
+def _streams(d_llrs: torch.Tensor, k: int):
+    """(sys1, par1, par2 [B, K], tails (sys1, par1, sys2, par2) [B, 3]): the
+    tail demultiplexing of 36.212 5.1.3.2.2, inverse of ``encode``."""
+    sys1 = d_llrs[:, 0, :k].contiguous()
+    par1 = d_llrs[:, 1, :k].contiguous()
+    par2 = d_llrs[:, 2, :k].contiguous()
+    t = d_llrs[:, :, k:k + 4]
+    tails = (torch.stack([t[:, 0, 0], t[:, 2, 0], t[:, 1, 1]], 1),
+             torch.stack([t[:, 1, 0], t[:, 0, 1], t[:, 2, 1]], 1),
+             torch.stack([t[:, 0, 2], t[:, 2, 2], t[:, 1, 3]], 1),
+             torch.stack([t[:, 1, 2], t[:, 0, 3], t[:, 2, 3]], 1))
+    return sys1, par1, par2, tails
+
+
+def _prepare(d_llrs: torch.Tensor, k: int, kernel: str, window: int | None):
+    """Window length and the LLRs the decoder works on. The bfloat16 kernel
+    (v5) gets them rescaled to an RMS of 32, as ``turbo_pallas.decode``
+    does: max-log BCJR is scale-invariant, so decisions do not change, and
+    bf16's 8-bit mantissa then quantises at ~0.4% of a working LLR."""
+    lw = window or pick_window(k) or k
+    if k % lw:
+        raise ValueError(f"window {lw} must divide K={k}")
+    if kernel == "v5":
+        rms = torch.sqrt(torch.mean(torch.square(d_llrs.to(torch.float32))) + 1e-9)
+        d_llrs = d_llrs * (32.0 / rms)
+    return lw, d_llrs
+
+
+def _crc_of(crc_mat, device):
+    return None if crc_mat is None else torch.as_tensor(
+        np.asarray(crc_mat, np.float32) if isinstance(crc_mat, np.ndarray) else crc_mat,
+        dtype=torch.float32, device=device)
+
+
+def _ok_of(hard: torch.Tensor, crc_m: torch.Tensor | None) -> torch.Tensor:
+    """CRC flags of [B, K] hard bits; all False without a CRC matrix."""
+    if crc_m is None:
+        return torch.zeros(hard.shape[0], dtype=torch.bool, device=hard.device)
+    return crc_ok(hard, crc_m)
+
+
 def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
            crc_mat: np.ndarray | torch.Tensor | None = None,
-           early_exit: bool = True):
-    """Batched turbo decode, the counterpart of ``turbo.decode``.
+           early_exit: bool = True, kernel: str = "r2max", window: int | None = None):
+    """Batched turbo decode, the counterpart of ``turbo.decode`` and of the
+    masked paths of ``turbo_pallas.decode``.
 
     d_llrs: [B, 3, K+4] float32 rate-dematched LLRs.
     Returns (hard [B, K] uint8, iters [B] int32, crc_ok [B] bool).
 
     Blocks that pass the CRC (``crc_mat`` [K, 24] over the whole block)
-    are frozen by masks, so iterations after convergence change nothing.
+    are frozen by masks, so iterations after convergence change nothing,
+    and ``iters`` counts each block's iterations up to its convergence.
     ``early_exit`` stops the loop once every block has passed, at the cost
     of one host synchronisation per iteration; without it all ``n_iters``
     masked iterations run with no synchronisation. Both give the same
-    results. The window length is ``pick_window(k)``; blocks with no
-    window run as one window of length K.
+    results. ``kernel`` is the half-iteration instance
+    (``kernels.bcjr.KERNELS``); ``window`` the window length, by default
+    ``pick_window(k)``, and blocks with no window run as one window of
+    length K.
     """
     from ..kernels.bcjr import bcjr_half_windowed
 
     dev = d_llrs.device
     B = d_llrs.shape[0]
-    lw = pick_window(k) or k
+    lw, d_llrs = _prepare(d_llrs, k, kernel, window)
     W = k // lw
     perm, inv = qpp_tensors(k, dev)
-
-    sys1 = d_llrs[:, 0, :k].contiguous()
-    par1 = d_llrs[:, 1, :k].contiguous()
-    par2 = d_llrs[:, 2, :k].contiguous()
+    sys1, par1, par2, (t1s, t1p, t2s, t2p) = _streams(d_llrs, k)
     sys2 = sys1[:, perm]
-    t = d_llrs[:, :, k:k + 4]
-    tail1_sys = torch.stack([t[:, 0, 0], t[:, 2, 0], t[:, 1, 1]], 1)
-    tail1_par = torch.stack([t[:, 1, 0], t[:, 0, 1], t[:, 2, 1]], 1)
-    tail2_sys = torch.stack([t[:, 0, 2], t[:, 2, 2], t[:, 1, 3]], 1)
-    tail2_par = torch.stack([t[:, 1, 2], t[:, 0, 3], t[:, 2, 3]], 1)
-
-    crc_m = None if crc_mat is None else torch.as_tensor(
-        np.asarray(crc_mat, np.float32) if isinstance(crc_mat, np.ndarray)
-        else crc_mat, dtype=torch.float32, device=dev)
-
-    def ok_of(hard):
-        if crc_m is None:
-            return torch.zeros(B, dtype=torch.bool, device=dev)
-        return crc_ok(hard, crc_m)
-
+    crc_m = _crc_of(crc_mat, dev)
     le21 = torch.zeros(B, k, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -264,12 +318,12 @@ def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
         if stop_early and bool(done.all()):
             break
         le12, ab1n, bb1n = bcjr_half_windowed(
-            sys1, par1, le21, tail1_sys, tail1_par, ab1, bb1, lw)
+            sys1, par1, le21, t1s, t1p, ab1, bb1, lw, kernel)
         le21_raw, ab2n, bb2n = bcjr_half_windowed(
-            sys2, par2, le12[:, perm], tail2_sys, tail2_par, ab2, bb2, lw)
+            sys2, par2, le12[:, perm], t2s, t2p, ab2, bb2, lw, kernel)
         le21_new = le21_raw[:, inv]
         hard_new = (sys1 + le12 + le21_new < 0).to(torch.uint8)
-        ok = ok_of(hard_new)
+        ok = _ok_of(hard_new, crc_m)
         m = done[:, None]
         m3 = done[:, None, None]
         le21 = torch.where(m, le21, le21_new)
@@ -280,4 +334,43 @@ def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
         bb2 = torch.where(m3, bb2, bb2n)
         iters += (~done).to(torch.int32)
         done = done | ok
-    return hard, iters, ok_of(hard) | done
+    return hard, iters, _ok_of(hard, crc_m) | done
+
+
+def decode_forced(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
+                  crc_mat: np.ndarray | torch.Tensor | None = None,
+                  kernel: str = "r2max", window: int | None = None):
+    """Forced-iteration turbo decode, the counterpart of the forced forms of
+    ``turbo_pallas``: ``decode(early_exit=False)`` (window-linear, unrolled
+    or ``fori_loop``), ``decode_forced_bm``, ``decode_forced_tiled`` and
+    ``decode_forced_loop_tiled``. Their contract: every block runs all
+    ``n_iters`` iterations with no per-iteration CRC and no freezing of
+    converged blocks; the hard decision and the CRC come once, at the end,
+    and ``iters`` is ``n_iters`` for every block.
+
+    Each half is ``kernels.bcjr.bcjr_half_fused``: on CUDA with the default
+    kernel one launch that gathers its a-priori input through the QPP
+    interleaver and injects its window boundaries itself, so the loop
+    holds no glue. The extrinsics and boundaries are double-buffered (every
+    half writes new tensors). Same arguments and results as ``decode``.
+    """
+    from ..kernels.bcjr import bcjr_half_fused
+
+    dev = d_llrs.device
+    B = d_llrs.shape[0]
+    lw, d_llrs = _prepare(d_llrs, k, kernel, window)
+    W = k // lw
+    perm, inv = qpp_tensors(k, dev)
+    perm32, inv32 = perm.to(torch.int32), inv.to(torch.int32)
+    sys1, par1, par2, (t1s, t1p, t2s, t2p) = _streams(d_llrs, k)
+    sys2 = sys1[:, perm]
+    bt1, bt2 = tail_beta(t1s, t1p), tail_beta(t2s, t2p)
+
+    le12 = le21_raw = torch.zeros(B, k, device=dev)
+    al1 = bf1 = al2 = bf2 = torch.zeros(B, W, 8, device=dev)
+    for _ in range(n_iters):
+        le12, al1, bf1 = bcjr_half_fused(sys1, par1, le21_raw, inv32, al1, bf1, bt1, lw, kernel)
+        le21_raw, al2, bf2 = bcjr_half_fused(sys2, par2, le12, perm32, al2, bf2, bt2, lw, kernel)
+    hard = (sys1 + le12 + le21_raw[:, inv] < 0).to(torch.uint8)
+    iters = torch.full((B,), n_iters, dtype=torch.int32, device=dev)
+    return hard, iters, _ok_of(hard, _crc_of(crc_mat, dev))

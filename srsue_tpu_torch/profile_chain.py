@@ -3,7 +3,8 @@
     python -m srsue_tpu_torch.profile_chain [B]
 
 Runs the 20 MHz MCS 28 chain (``entry.entry``) at B subframes (default
-256), forced 8 iterations and CRC early exit, once each under
+256) with the turbo decoder in each of its forms -- forced 8 iterations
+(the fused half), 8 masked iterations and CRC early exit -- once each under
 ``torch.profiler`` after a warm-up call, and prints for each: the wall
 time of the call, the summed device time of its kernels, the device's idle
 share of the wall time, and the kernels with the most device time.
@@ -43,11 +44,11 @@ def breakdown(fn, args, top: int = 12) -> dict:
 
 def main(batch: int = 256) -> None:
     dev = require_cuda()
-    for early_exit in (False, True):
-        fn, args, _ = entry.entry(dev, batch=batch, early_exit=early_exit,
-                                  n_distinct=4)
+    for mode, form in (("forced 8", {"forced": True}),
+                       ("masked 8", {"early_exit": False}),
+                       ("early exit", {"early_exit": True})):
+        fn, args, _ = entry.entry(dev, batch=batch, n_distinct=4, **form)
         r = breakdown(fn, args)
-        mode = "early exit" if early_exit else "forced 8"
         print(f"{mode} B={batch}: wall {r['wall_ms']:.3f} ms, kernels "
               f"{r['device_ms']:.3f} ms, device idle {100 * r['idle_share']:.1f}%")
         for name, calls, ms in r["top"]:

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernel and the chain on the card, against
+"""The port's hand-written CUDA kernels and the chain on the card, against
 the plain PyTorch twins. Every test needs a CUDA GPU and skips without
 one. This file imports no JAX, so on a machine without it run:
 
@@ -6,7 +6,9 @@ one. This file imports no JAX, so on a machine without it run:
 
 Tolerance kernel vs plain: rtol 1e-5, atol 1e-3 on extrinsics and on the
 offset-free boundary metrics (both perform the same float32 operations;
-the kernel's compiler may contract or reorder them). Decisions of the
+the kernel's compiler may contract or reorder them). The bfloat16 kernel
+(v5) against its bf16 twin: one bf16 unit in the last place of the largest
+value (2^-7 of it), since both round the same operations. Decisions of the
 decoder and the chain are equal.
 """
 
@@ -49,14 +51,45 @@ def _half_args(k, lw, blocks, device, seed):
     (5824, 64, 40), (512, 64, 64), (432, 48, 64), (256, 256, 64), (40, 40, 7)])
 def test_kernel_matches_plain(cuda_device, k, lw, blocks):
     args = _half_args(k, lw, blocks, cuda_device, k)
-    before = bcjr.bcjr_half_windowed.launches
+    before = bcjr.launches["r2max"]
     got = bcjr.bcjr_half_windowed(*args)
-    assert bcjr.bcjr_half_windowed.launches == before + 1
+    assert bcjr.launches["r2max"] == before + 1
     ref = bcjr.bcjr_half_windowed_plain(*args)
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
     for a, b in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a - a.amax(-1, keepdim=True),
                                    b - b.amax(-1, keepdim=True), rtol=1e-5, atol=1e-3)
+
+
+def _assert_matches(got, ref, kernel):
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if i:  # boundaries: only differences between states matter
+            a, b = a - a.amax(-1, keepdim=True), b - b.amax(-1, keepdim=True)
+        if kernel == "v5":
+            torch.testing.assert_close(a, b, rtol=0, atol=2.0 ** -7 * float(b.abs().max()))
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("kernel", ["v2v3", "v4", "v5"])
+@pytest.mark.parametrize("k,lw,blocks", [(512, 64, 64), (432, 48, 63), (256, 256, 65)])
+def test_instance_matches_plain(cuda_device, kernel, k, lw, blocks):
+    args = _half_args(k, lw, blocks, cuda_device, k)
+    before = dict(bcjr.launches)
+    got = bcjr.bcjr_half_windowed(*args, kernel=kernel)
+    assert bcjr.launches == {n: c + (n == kernel) for n, c in before.items()}
+    _assert_matches(got, bcjr.bcjr_half_windowed_plain(*args, kernel=kernel), kernel)
+
+
+@pytest.mark.parametrize("k,lw,blocks", [(512, 64, 64), (432, 48, 63), (256, 256, 65)])
+def test_fused_matches_plain(cuda_device, k, lw, blocks):
+    sys_h, par_h, other, ts, tp, al, bf, _ = _half_args(k, lw, blocks, cuda_device, k + 1)
+    inv = turbo.qpp_tensors(k, cuda_device)[1].to(torch.int32)
+    args = (sys_h, par_h, other, inv, al, bf, turbo.tail_beta(ts, tp), lw)
+    before = dict(bcjr.launches)
+    got = bcjr.bcjr_half_fused(*args)
+    assert bcjr.launches == {n: c + (n == "fused") for n, c in before.items()}
+    _assert_matches(got, bcjr.bcjr_half_fused_plain(*args), "fused")
 
 
 def test_wrapper_rejects_cpu_cuda_mix(cuda_device):
@@ -85,6 +118,28 @@ def test_decode_on_card_matches_cpu(cuda_device):
                            early_exit=early_exit)
         for x, y in zip(gpu, cpu):
             torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel,forced", [
+    ("v2v3", False), ("v4", False), ("v5", False), ("r2max", True), ("v4", True)])
+def test_variants_on_card_match_cpu(cuda_device, kernel, forced):
+    k = 512
+    rng = np.random.default_rng(2)
+    m = np.zeros((k, 24), np.uint8)
+    m[:k - 24] = crcmod.crc_matrix(k - 24, "24A")
+    m[k - 24:] = np.eye(24, dtype=np.uint8)
+    llrs = []
+    for _ in range(5):
+        msg = crcmod.attach(rng.integers(0, 2, k - 24).astype(np.uint8), "24A")
+        x = 1.0 - 2.0 * turbo.encode(msg).astype(np.float32)
+        llrs.append(2 * (x + rng.standard_normal(x.shape).astype(np.float32) * 0.9) / 0.81)
+    llrs = np.stack(llrs).astype(np.float32)
+    decode = turbo.decode_forced if forced else turbo.decode
+    cpu = decode(torch.as_tensor(llrs), k, 4, m, kernel=kernel)
+    gpu = decode(torch.as_tensor(llrs, device=cuda_device), k, 4, m, kernel=kernel)
+    for x, y in zip(gpu, cpu):
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
+    assert cpu[2].all()
 
 
 @pytest.mark.parametrize("n_prb,mcs", [(6, 5), (25, 17)])

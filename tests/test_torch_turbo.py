@@ -112,12 +112,13 @@ def test_tail_beta_matches_reference():
 def test_plain_twin_equals_dispatching_wrapper_on_cpu():
     inp = _half_inputs(432, 48, 2, 4, random_bounds=True)
     args = {n: torch.as_tensor(v) for n, v in inp.items()}
-    before = bcjr.bcjr_half_windowed.launches
-    a = bcjr.bcjr_half_windowed(**args, lw=48)
-    b = bcjr.bcjr_half_windowed_plain(**args, lw=48)
-    for x, y in zip(a, b):
-        torch.testing.assert_close(x, y, rtol=0, atol=0)
-    assert bcjr.bcjr_half_windowed.launches == before  # no kernel on the CPU
+    before = dict(bcjr.launches)
+    for kernel in bcjr.KERNELS:
+        a = bcjr.bcjr_half_windowed(**args, lw=48, kernel=kernel)
+        b = bcjr.bcjr_half_windowed_plain(**args, lw=48, kernel=kernel)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert bcjr.launches == before  # no kernel on the CPU
 
 
 def test_wrapper_rejects_bad_inputs():
