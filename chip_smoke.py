@@ -23,7 +23,21 @@ Phases, each of which fails the run:
      the forced form (8 iterations, no per-iteration CRC, the fused half):
      every TB passes bit-exact, the launch counters show 2 x iterations
      for the chosen instance and 0 for every other; ms/batch and Mbps;
-  7. the kernel microbenchmark (srsue_tpu_torch/bench_kernel_variants.py).
+  7. the kernel microbenchmark (srsue_tpu_torch/bench_kernel_variants.py);
+  8. the circular Viterbi kernel (csrc/viterbi.cu) against its plain twin
+     (phy/convcode.py::decode_plain) at the blind search's shapes (B=4,608
+     hypotheses of n=44 and 54, 1,536 of 31, PBCH's 4 of 40, an odd n=33):
+     equal hard bits on noisy codewords at 0/3/10 dB and random LLRs, the
+     sent bits at 10 dB; both timed;
+  9. the blind control + data chain (rx.make_rx, bench.py's make_rx) at
+     B=256, 26 dB, with ZF, MMSE and scalar-noise ZF (early exit) and ZF
+     forced: every CFI, DCI and TB found, bit-exact, one Viterbi launch per
+     call and 2 x iterations of the chosen BCJR instance only; ms/batch,
+     Mbps, the control stage alone; BLER at 20 dB with MMSE; a corrupted
+     control region finds no DCI;
+ 10. the UE DL facade (UeDl.process) on those subframes: CFI, the one grant
+     (TBS 75376), every payload bit-exact; a wrong RNTI gets no grant; DL
+     HARQ: rv0 alone fails, rv0 + rv2 soft-combined passes and delivers.
 
 Prints the kernels' JSON record, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": ...}. Exits non-zero with no result when CUDA
@@ -32,6 +46,7 @@ is unavailable or a phase fails. Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,6 +54,7 @@ import time
 
 BATCH = 256
 SNR_DB = 26.0
+HARQ_SNR_DB = 15.0  # MCS 28: rv0 alone fails, rv0 + rv2 passes
 RTOL, ATOL = 1e-5, 1e-3
 KERNEL_SHAPES = (  # (label, K, lw, blocks)
     ("flagship K=5824 lw=64", 5824, 64, BATCH * 13),
@@ -55,6 +71,13 @@ NEW_KERNELS = {  # instance: (source, the TPU kernel it replaces)
     "v5": ("srsue_tpu_torch/csrc/bcjr_half_r4.cu", f"{TURBO}:487"),
     "fused": ("srsue_tpu_torch/csrc/bcjr_half_fused.cu", f"{TURBO}:1341"),
 }
+VITERBI_SHAPES = (  # (label, hypotheses, n): the first is the flagship's
+    ("DCI 1A, 100 PRB", 4608, 44),
+    ("DCI 1, 100 PRB", 4608, 54),
+    ("DCI 1C, common space", 1536, 31),
+    ("PBCH", 4, 40),
+    ("odd n", 256, 33),
+)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -306,6 +329,184 @@ def phase_variant_chains(torch, entry, bcjr, dev, iq, want):
     return launches
 
 
+def viterbi_inputs(np, convcode, batch, n, snr_db, seed):
+    """(llrs [batch, n, 3] float32, bits [batch, n]): noisy codewords of
+    random bits at `snr_db` per coded bit, or random LLRs when it is None."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (batch, n)).astype(np.uint8)
+    if snr_db is None:
+        return (rng.standard_normal((batch, n, 3)) * 4.0).astype(np.float32), bits
+    x = 1.0 - 2.0 * np.swapaxes(convcode.encode(bits), -1, -2)
+    var = 10.0 ** (-snr_db / 10.0)
+    y = x + np.sqrt(var) * rng.standard_normal(x.shape)
+    return np.ascontiguousarray(2.0 * y / var, dtype=np.float32), bits
+
+
+def phase_viterbi(torch, np, viterbi, convcode, dev):
+    """The Viterbi kernel against decode_plain at the path's shapes: equal
+    hard bits (exact), and the transmitted bits at 10 dB; both timed at
+    every shape. Returns the flagship row (B=4,608, n=44) with the largest
+    bit difference over every shape and input."""
+    row, err = None, 0
+    for label, batch, n in VITERBI_SHAPES:
+        for j, snr in enumerate((0.0, 3.0, 10.0, None)):
+            llr_np, bits = viterbi_inputs(np, convcode, batch, n, snr, 1000 * n + j)
+            llr = torch.as_tensor(llr_np, device=dev)
+            before = viterbi.launches
+            got = convcode.decode(llr)
+            check(viterbi.launches == before + 1, f"viterbi {label}: the kernel did not launch")
+            ref = convcode.decode_plain(llr)
+            err = max(err, int((got.int() - ref.int()).abs().max()))
+            check(bool((got == ref).all()), f"viterbi {label} {snr} dB: "
+                  f"{int((got != ref).sum())} bits differ from decode_plain")
+            if snr == 10.0:
+                check(bool((got.cpu().numpy() == bits).all()),
+                      f"viterbi {label} at 10 dB: decoded bits differ from the sent ones")
+        ms = cuda_ms(torch, lambda: convcode.decode(llr), reps=50)
+        plain_ms = cuda_ms(torch, lambda: convcode.decode_plain(llr), reps=3)
+        print(f"phase 8: viterbi {label} B={batch} n={n}: kernel = decode_plain bit for bit "
+              f"at 0/3/10 dB and random LLRs, 10 dB = sent bits; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        if row is None:
+            row = {"ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": float(err), **row}
+
+
+def zero_all(bcjr, viterbi) -> None:
+    zero_counts(bcjr)
+    viterbi.launches = 0
+
+
+def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
+    """The blind control + data chain (rx.make_rx) at B=256 and 26 dB with
+    each equalizer (CRC early exit, r2max) and in the forced form: every
+    CFI, DCI and TB found, bit-exact, with one Viterbi launch per call and
+    2 x iterations of the chosen BCJR instance only; ms/batch, decoded
+    Mbps and the control stage alone; BLER at 20 dB (MMSE); a corrupted
+    control region finds no DCI. Returns (clean vectors, noisy IQ, the
+    Viterbi launches of the zf early-exit run)."""
+    t0 = time.perf_counter()
+    clean = rx.build_clean(BATCH, n_distinct=4)
+    noisy = rx.add_noise(clean.rng, clean.td, clean.p_sig, SNR_DB)
+    iq = torch.as_tensor(noisy, device=dev)
+    print(f"phase 9: test vectors B={BATCH} (CRS, PCFICH, DCI 1A, PDSCH) built on the host "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
+            clean.dci_bits, clean.payloads)
+    tbs = clean.grant.tbs
+    vit_launches, chain_ms = None, {}
+    for label, eq, kw in (("zf", "zf", {}), ("mmse", "mmse", {}),
+                          ("zf_scalar", "zf_scalar", {}), ("zf forced", "zf", {"forced": True})):
+        fn = rx.make_rx(*args, early_exit=True, eq=eq, device=dev, **kw)
+        fn(iq)
+        torch.cuda.synchronize()
+        zero_all(bcjr, viterbi)
+        stats = {k: float(v) for k, v in fn(iq).items()}
+        torch.cuda.synchronize()
+        counts, vit = dict(bcjr.launches), viterbi.launches
+        check(stats["n_dci"] == stats["cfi_ok"] == stats["n_ok"] == BATCH
+              and stats["bit_match"] == 1.0, f"blind chain {label}: {stats}")
+        check(vit == 1, f"blind chain {label}: {vit} Viterbi launches, expected 1")
+        inst = "fused" if kw else "r2max"
+        expect = 2 * int(stats["max_iters"])
+        check(counts == {n: expect if n == inst else 0 for n in counts},
+              f"blind chain {label}: BCJR launches {counts}, expected {expect} of {inst} only")
+        if kw:
+            check(stats["mean_iters"] == 8.0, f"forced chain: {stats['mean_iters']} iterations")
+        if vit_launches is None:
+            vit_launches = vit
+        t = chain_ms[label] = cuda_ms(torch, lambda: fn(iq), reps=5)
+        print(f"phase 9: blind chain {label}: {BATCH}/{BATCH} CFI, DCI and TB, bit-exact; "
+              f"1 Viterbi launch, BCJR {inst} x{expect}; mean iters/block "
+              f"{stats['mean_iters']:.3f}; {t:.3f} ms/batch = "
+              f"{stats['n_ok'] * tbs / t / 1e3:.1f} Mbps decoded", flush=True)
+
+    grid = ofdm.demodulate(clean.cell, iq)
+    h, nvar, _ = chest.estimate(clean.cell, grid, clean.subframe)
+    n = dci.size_0_1a(clean.cell.n_prb)
+    ctrl_ms = {}
+    for eq in ("zf", "mmse"):
+        ctrl = rx.control_stage(clean.cell, clean.subframe, clean.cfi, clean.rnti, n, eq)
+        n_cand = ctrl(grid, h, nvar)[1].shape[1]
+        ms = ctrl_ms[eq] = cuda_ms(torch, lambda: ctrl(grid, h, nvar), reps=10)
+        print(f"phase 9: control stage alone ({eq}: full-grid eq, PCFICH, blind search of "
+              f"{BATCH} x {n_cand} candidates): {ms:.3f} ms/batch", flush=True)
+    front_ms = cuda_ms(torch, lambda: chest.estimate(
+        clean.cell, ofdm.demodulate(clean.cell, iq), clean.subframe), reps=10)
+    print(f"phase 9: blind chain zf stages, ms/batch: OFDM + chest {front_ms:.3f}, control "
+          f"{ctrl_ms['zf']:.3f}, PDSCH (extract, eq, demap, dematch, turbo, TB CRC; the "
+          f"rest of the chain) {chain_ms['zf'] - front_ms - ctrl_ms['zf']:.3f}", flush=True)
+
+    fn = rx.make_rx(*args, early_exit=True, eq="mmse", device=dev)
+    iq20 = torch.as_tensor(rx.add_noise(clean.rng, clean.td, clean.p_sig, 20.0), device=dev)
+    stats = {k: float(v) for k, v in fn(iq20).items()}
+    bler = 1.0 - stats["n_ok"] / BATCH
+    check(bler < 0.6 and stats["n_dci"] == stats["cfi_ok"] == BATCH
+          and stats["bit_match"] == 1.0, f"waterfall 20 dB mmse: {stats}")
+    t = cuda_ms(torch, lambda: fn(iq20), reps=5)
+    print(f"phase 9: waterfall 20 dB mmse: BLER {100 * bler:.2f}% "
+          f"({int(stats['n_ok'])}/{BATCH} TBs pass, all bit-exact), all CFIs and DCIs found; "
+          f"{t:.3f} ms/batch = {stats['n_ok'] * tbs / t / 1e3:.1f} Mbps decoded", flush=True)
+
+    bad = iq.clone()
+    bad[:, : bad.shape[1] // 7] = 0  # the first two OFDM symbols: the control region
+    stats = {k: float(v) for k, v in rx.make_rx(*args, early_exit=True, device=dev)(bad).items()}
+    check(stats["n_dci"] == 0, f"corrupted control region: {stats['n_dci']} DCIs found")
+    print(f"phase 9: corrupted control region: no DCI found, no crash "
+          f"(CFI found in {int(stats['cfi_ok'])}/{BATCH})", flush=True)
+    return clean, noisy, vit_launches
+
+
+def phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterbi, dev,
+                clean, noisy):
+    """UeDl.process on the blind chain's B=256 subframes: the CFI and the one
+    grant (TBS 75376), every payload bit-exact; a wrong RNTI gives no
+    grant; DlHarq: rv0 alone fails at 15 dB, rv0 + rv2 passes and delivers
+    the payload bytes."""
+    ue = UeDl(clean.cell, device=dev)
+    ue.process(noisy, clean.subframe, clean.rnti)
+    torch.cuda.synchronize()
+    zero_all(bcjr, viterbi)
+    t0 = time.perf_counter()
+    res = ue.process(noisy, clean.subframe, clean.rnti)
+    wall = (time.perf_counter() - t0) * 1e3
+    check(res.cfi == clean.cfi and len(res.grants) == 1
+          and res.grants[0].tbs == clean.grant.tbs == 75376, f"UeDl: cfi {res.cfi}, "
+          f"grants {res.grants}")
+    check(all(len(e) == 1 for e in res.hits_per_elem), "UeDl: a subframe without its DCI")
+    check(bool(res.tb_ok.all()) and bool((res.payload == clean.payloads).all()),
+          "UeDl: payloads not bit-exact")
+    check(viterbi.launches == 1, f"UeDl: {viterbi.launches} Viterbi launches")
+    print(f"phase 10: UeDl.process B={BATCH}: CFI {res.cfi}, one grant (TBS "
+          f"{res.grants[0].tbs}) in every subframe, {BATCH}/{BATCH} TBs bit-exact; "
+          f"{wall:.3f} ms host wall per call (CFI and hits read back)", flush=True)
+    none = ue.process(noisy, clean.subframe, clean.rnti ^ 0x0F0F)
+    check(none.grants == [] and none.payload is None, "UeDl: a grant for a wrong RNTI")
+    print("phase 10: wrong RNTI: no grant", flush=True)
+
+    cell, sf, cfi = clean.cell, clean.subframe, clean.cfi
+    g0 = clean.grant
+    g2 = dataclasses.replace(g0, rv=2)
+    codecs = [PdschCodec(cell, g, clean.rnti, sf, cfi, device=dev) for g in (g0, g2)]
+    rng = np.random.default_rng(7)
+    payload = clean.payloads[0]
+    bufs = []
+    for codec in codecs:
+        td = enb_tx.to_waveform(cell, enb_tx.build_pdsch_subframe(cell, codec, payload))[0]
+        p_sig = float(np.mean(np.abs(td) ** 2)) * cell.nfft / cell.n_sc
+        iq = torch.as_tensor(enb_tx.awgn(rng, td[None], HARQ_SNR_DB, p_sig)[0], device=dev)
+        front, dd, _, _ = entry.stages(cell, codec, sf)
+        bufs.append(dd(*front(iq)))
+    got = []
+    harq = DlHarq(lambda pid, data: got.append(data))
+    acks = [harq.new_grant_dl(0, g0), harq.tb_decoded(0, codecs[0], bufs[0]),
+            harq.new_grant_dl(0, g2), harq.tb_decoded(0, codecs[0], bufs[1])]
+    check(acks == [True, False, False, True], f"DlHarq: new/ACK sequence {acks}")
+    check(got == [np.packbits(payload).tobytes()], "DlHarq: delivered bytes differ")
+    print(f"phase 10: DlHarq at {HARQ_SNR_DB} dB: rv0 alone NACK, rv0 + rv2 combined ACK, "
+          f"{len(got[0])} payload bytes delivered exact", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -313,9 +514,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
               "CUDA GPU", file=sys.stderr)
         return 2
-    from srsue_tpu_torch import bench_kernel_variants, entry
-    from srsue_tpu_torch.kernels import bcjr, build
-    from srsue_tpu_torch.phy import turbo
+    import numpy as np
+
+    from srsue_tpu_torch import bench_kernel_variants, entry, rx
+    from srsue_tpu_torch.kernels import bcjr, build, viterbi
+    from srsue_tpu_torch.mac.dl_harq import DlHarq
+    from srsue_tpu_torch.phy import chest, convcode, dci, enb_tx, ofdm, turbo
+    from srsue_tpu_torch.phy.pdsch import PdschCodec
+    from srsue_tpu_torch.phy.ue_dl import UeDl
     from srsue_tpu_torch.utils.device import require_cuda
 
     dev = require_cuda()
@@ -345,6 +551,11 @@ def main() -> int:
     new_launches = phase_variant_chains(torch, entry, bcjr, dev, iq, want)
     for line in bench_kernel_variants.report(bench_kernel_variants.run(dev, reps=20)):
         print(f"phase 7: {line}", flush=True)
+    vit_row = phase_viterbi(torch, np, viterbi, convcode, dev)
+    clean, noisy, vit_launches = phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr,
+                                                   viterbi, dev)
+    phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterbi, dev,
+                clean, noisy)
 
     flag = rows[0]
     kernels = [{
@@ -357,6 +568,10 @@ def main() -> int:
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": new_launches[name], **new[name]})
+    kernels.append({"name": "viterbi", "route": "cuda",
+                    "source": "srsue_tpu_torch/csrc/viterbi.cu",
+                    "replaces": "srsue_tpu/phy/convcode.py:85", "launches": vit_launches,
+                    **vit_row})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)
     print(json.dumps({"ok": True, "device": {

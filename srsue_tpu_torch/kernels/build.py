@@ -64,6 +64,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
     lib.srsue_bcjr_half_fused.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, i, i, p]
     lib.srsue_bcjr_half_fused.restype = ctypes.c_int
+    lib.srsue_viterbi.argtypes = [p, p, ll, i, p]
+    lib.srsue_viterbi.restype = ctypes.c_int
 
 
 def _compile(nvcc: str, sources: list[Path], so: Path) -> str:

@@ -1,1 +1,2 @@
-"""Torch PHY: the PDSCH receive chain and its host-side transmitter."""
+"""Torch PHY: the blind control and PDSCH receive chain, the UE DL facade
+and their host-side transmitter."""

@@ -1,0 +1,296 @@
+"""Control region: PCFICH and PDCCH, REG/CCE geometry, encode and decode
+(36.211 6.7/6.8/6.9, 36.212 5.1.4.2/5.3.3, 36.213 9.1.1). Counterpart of
+the single-port receive side of ``srsue_tpu/phy/control.py`` and of the
+transmit side its test vectors need.
+
+The REG/CCE geometry (quadruplet sub-block interleaver, cell-ID cyclic
+shift, PCFICH and PHICH REGs) is host numpy, cached per configuration; the
+device sees only:
+
+* PCFICH: a [32] x [32, 3] correlation product -> argmax CFI;
+* PDCCH blind search: every (candidate, batch element) hypothesis gathered,
+  demapped and dematched into one batch, decoded by ONE
+  ``convcode.decode`` call, and checked by one RNTI-masked CRC16 product.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from srsue_tpu.phy import crc, regrid, seq
+from srsue_tpu.phy.cell import Cell
+
+from ..utils.device import to_host
+from . import convcode, modulation, ratematch
+
+# ---------------------------------------------------------------------------
+# REG geometry
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=128)
+def regs_in_symbol(cell: Cell, l: int) -> tuple[tuple[int, ...], ...]:
+    """REGs of symbol l as tuples of 4 flat RE indices (sym*n_sc + k),
+    ordered by frequency. In a symbol with CRS (l = 0, and l = 1 with four
+    ports) a REG is the 4 REs of 6 subcarriers off the CRS positions
+    k = vshift (mod 3)."""
+    n_sc = cell.n_sc
+    if l == 0 or (l == 1 and cell.n_ports == 4):
+        a = cell.vshift % 6
+        return tuple(tuple(l * n_sc + 6 * m + j for j in range(6) if j % 3 != a % 3)
+                     for m in range(n_sc // 6))
+    return tuple(tuple(l * n_sc + 4 * m + j for j in range(4)) for m in range(n_sc // 4))
+
+
+@functools.lru_cache(maxsize=128)
+def pcfich_regs(cell: Cell) -> tuple[int, ...]:
+    """Indices (into regs_in_symbol(cell, 0)) of the 4 PCFICH REGs."""
+    n_rb = cell.n_prb
+    k_bar = 6 * (cell.cell_id % (2 * n_rb))
+    return tuple(((k_bar + (z * n_rb // 2) * 6) % cell.n_sc) // 6 for z in range(4))
+
+
+def n_phich_groups(cell: Cell) -> int:
+    return max(1, math.ceil(cell.phich_resources * cell.n_prb / 8))
+
+
+@functools.lru_cache(maxsize=128)
+def phich_reg_table(cell: Cell) -> tuple[tuple[int, ...], ...]:
+    """Per PHICH group: indices into regs_in_symbol(cell, 0) of its 3 REGs
+    (normal duration: all in symbol 0). 36.211 6.9.3."""
+    pcf = pcfich_regs(cell)
+    avail = [i for i in range(len(regs_in_symbol(cell, 0))) if i not in pcf]
+    n0 = len(avail)
+    return tuple(tuple(avail[(cell.cell_id + m + (i * n0) // 3) % n0] for i in range(3))
+                 for m in range(n_phich_groups(cell)))
+
+
+@functools.lru_cache(maxsize=256)
+def pdcch_geometry(cell: Cell, cfi: int):
+    """(n_cce, cce_re_idx [n_cce, 36] int32): flat RE indices of each CCE
+    after quadruplet interleaving and the cell-ID cyclic shift (36.211
+    6.8.5)."""
+    used0 = set(pcfich_regs(cell))
+    for grp in phich_reg_table(cell):
+        used0.update(grp)
+    # REGs of the control region in (k, l) order
+    reg_list = []
+    for l in range(regrid.control_span(cell, cfi)):
+        for i, res in enumerate(regs_in_symbol(cell, l)):
+            if not (l == 0 and i in used0):
+                reg_list.append(((res[0] % cell.n_sc, l), res))
+    reg_list.sort(key=lambda t: t[0])
+    regs_ordered = [res for _, res in reg_list]
+    n_reg = len(regs_ordered)
+    n_cce = n_reg // 9
+
+    # quadruplet sub-block interleaver (the conv permutation on indices):
+    # REG position i carries interleaved quadruplet perm[(i + cell_id) % n]
+    perm = ratematch._interleave_idx(n_reg, ratematch.PERM_CONV)
+    perm = perm[perm >= 0]
+    reg_of_w = np.empty(n_reg, dtype=np.int64)
+    reg_of_w[perm[(np.arange(n_reg) + cell.cell_id) % n_reg]] = np.arange(n_reg)
+    cce_re = np.asarray([[re for j in range(9) for re in regs_ordered[reg_of_w[9 * c + j]]]
+                         for c in range(n_cce)], dtype=np.int32).reshape(n_cce, 36)
+    return n_cce, cce_re
+
+
+# ---------------------------------------------------------------------------
+# PCFICH
+# ---------------------------------------------------------------------------
+
+_CFI_CW = np.array(
+    [
+        [0, 1, 1] * 10 + [0, 1],
+        [1, 0, 1] * 10 + [1, 0],
+        [1, 1, 0] * 10 + [1, 1],
+    ],
+    dtype=np.uint8,
+)  # 36.212 Table 5.3.4-1 (periodic 011/101/110 patterns, 32 bits)
+
+
+def _cfi_scramble(cell: Cell, subframe: int) -> np.ndarray:
+    c_init = ((subframe + 1) * (2 * cell.cell_id + 1) << 9) + cell.cell_id
+    return seq.prs(c_init, 32)
+
+
+@functools.lru_cache(maxsize=256)
+def _pcfich_re(cell: Cell) -> np.ndarray:
+    regs = regs_in_symbol(cell, 0)
+    return np.asarray([re for r in pcfich_regs(cell) for re in regs[r]], dtype=np.int32)
+
+
+def pcfich_encode(cell: Cell, subframe: int, cfi: int) -> np.ndarray:
+    """The 16 QPSK symbols of the CFI codeword (host)."""
+    return modulation.modulate_np(_CFI_CW[cfi - 1] ^ _cfi_scramble(cell, subframe), 2)
+
+
+def pcfich_map(cell: Cell, grid: np.ndarray, subframe: int, cfi: int) -> None:
+    grid.reshape(-1)[_pcfich_re(cell)] = pcfich_encode(cell, subframe, cfi)
+
+
+@functools.lru_cache(maxsize=64)
+def _pcfich_tensors(cell: Cell, subframe: int, device: torch.device):
+    idx = torch.as_tensor(_pcfich_re(cell).astype(np.int64), device=device)
+    s = torch.as_tensor((1.0 - 2.0 * _cfi_scramble(cell, subframe)).astype(np.float32),
+                        device=device)
+    cw = torch.as_tensor((1.0 - 2.0 * _CFI_CW).astype(np.float32).T.copy(), device=device)
+    return idx, s, cw
+
+
+def _gather_re(grid_eq: torch.Tensor, nv_eff, idx: torch.Tensor):
+    """(symbols [..., m], noise) at the flat RE indices idx [m] of an
+    equalized [..., n_sym, n_sc] grid. A grid-shaped nv_eff is gathered
+    too; a batch-shaped one [...] gains a trailing axis, so the noise
+    always broadcasts against the symbols; a scalar stays a scalar."""
+    lead = grid_eq.shape[:-2]
+    y = grid_eq.reshape(lead + (-1,))[..., idx]
+    nv = torch.as_tensor(nv_eff, dtype=torch.float32, device=grid_eq.device)
+    if nv.ndim >= 2 and nv.shape[-2:] == grid_eq.shape[-2:]:
+        return y, nv.reshape(nv.shape[:-2] + (-1,))[..., idx]
+    return y, (nv[..., None] if nv.ndim else nv)
+
+
+def pcfich_decode(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int):
+    """Equalized grid(s) -> (cfi [...] int64, correlation scores [..., 3])."""
+    idx, s, cw = _pcfich_tensors(cell, subframe, grid_eq.device)
+    y, nv = _gather_re(grid_eq, nv_eff, idx)
+    llr = modulation.demodulate_soft(y, 2, nv)  # [..., 32]
+    scores = (llr * s) @ cw
+    return scores.argmax(-1) + 1, scores
+
+
+# ---------------------------------------------------------------------------
+# PDCCH
+# ---------------------------------------------------------------------------
+
+
+def _pdcch_scramble(cell: Cell, subframe: int, n_bits: int) -> np.ndarray:
+    c_init = (subframe << 9) + cell.cell_id
+    return seq.prs(c_init, n_bits)
+
+
+def pdcch_encode(cell: Cell, subframe: int, dci_bits: np.ndarray, rnti: int,
+                 l_aggr: int) -> np.ndarray:
+    """DCI payload -> the 72*L coded bits (CRC16 masked by the RNTI,
+    tail-biting conv coding, rate matching); scrambling is applied at map
+    time, where the CCE offset is known."""
+    b = crc.attach(dci_bits, "16", mask=rnti)
+    coded = convcode.encode(b)
+    return coded.reshape(-1)[ratematch.conv_rm_indices(len(b), 72 * l_aggr)]
+
+
+def pdcch_map(cell: Cell, grid: np.ndarray, subframe: int, cfi: int,
+              dci_bits: np.ndarray, rnti: int, n_cce: int, l_aggr: int) -> None:
+    """Map one DCI on CCEs n_cce .. n_cce + l_aggr - 1 (host)."""
+    n_cce_tot, cce_re = pdcch_geometry(cell, cfi)
+    bits = pdcch_encode(cell, subframe, dci_bits, rnti, l_aggr)
+    scr = _pdcch_scramble(cell, subframe, 72 * n_cce_tot)[72 * n_cce: 72 * (n_cce + l_aggr)]
+    grid.reshape(-1)[cce_re[n_cce: n_cce + l_aggr].reshape(-1)] = \
+        modulation.modulate_np(bits ^ scr, 2)
+
+
+def search_space_candidates(n_cce: int, rnti: int, subframe: int,
+                            ue_specific: bool = True) -> list[tuple[int, int]]:
+    """Candidate (start_cce, L) list: common (L=4,8) then the UE-specific
+    hash (36.213 9.1.1), deduplicated in order; the order indexes the
+    outputs of ``pdcch_blind_batch``."""
+    cands = [(m * l, l) for l, m_max in ((4, 4), (8, 2)) for m in range(m_max)
+             if m * l + l <= n_cce]
+    if ue_specific and rnti:
+        y = rnti
+        for _ in range(subframe + 1):
+            y = (39827 * y) % 65537
+        for l, m_max in ((1, 6), (2, 6), (4, 2), (8, 2)):
+            if n_cce // l == 0:
+                continue
+            for m in range(m_max):
+                start = l * ((y + m) % (n_cce // l))
+                if start + l <= n_cce:
+                    cands.append((start, l))
+    return list(dict.fromkeys(cands))
+
+
+@functools.lru_cache(maxsize=64)
+def _blind_tables(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
+                  ue_specific: bool, device: torch.device):
+    """Every candidate's REs, one after the other: (n_cand, RE index [M],
+    +-1 scrambling [2M], softbuffer index [2M] = candidate * 3 n_coded + its
+    conv dematch position), and the [n_coded, 16] CRC16 syndrome matrix
+    with the RNTI mask bits."""
+    n_cce, cce_re = pdcch_geometry(cell, cfi)
+    cands = search_space_candidates(n_cce, rnti, subframe, ue_specific)
+    if not cands:
+        raise ValueError("empty search space")
+    scr_full = (1.0 - 2.0 * _pdcch_scramble(cell, subframe, 72 * n_cce)).astype(np.float32)
+    n_coded = dci_len + 16
+    res = np.concatenate([cce_re[s: s + l].reshape(-1) for s, l in cands]).astype(np.int64)
+    scr = np.concatenate([scr_full[72 * s: 72 * (s + l)] for s, l in cands])
+    buf = np.concatenate([i * 3 * n_coded + ratematch.conv_rm_indices(n_coded, 72 * l)
+                          for i, (_, l) in enumerate(cands)])
+    m = np.zeros((n_coded, 16), np.float32)
+    m[:dci_len] = crc.crc_matrix(dci_len, "16")
+    m[dci_len:] = np.eye(16, dtype=np.float32)
+    mask = ((rnti >> np.arange(15, -1, -1)) & 1).astype(np.float32)
+    return (len(cands), *(torch.as_tensor(x, device=device) for x in (res, scr, buf, m, mask)))
+
+
+def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
+                      cfi: int, rnti: int, dci_len: int, ue_specific: bool = True):
+    """Blind DCI search over every search-space candidate of every batch
+    element, with no host sync.
+
+    grid_eq: [..., n_sym_sf, n_sc] equalized grid(s); nv_eff grid-shaped,
+    batch-shaped or scalar. Returns (hard [..., n_cand, dci_len] uint8
+    payloads, ok [..., n_cand] bool RNTI-masked CRC16 pass) in the order
+    of ``search_space_candidates``. One gather, QPSK demap, descramble and
+    scatter-add fill every candidate's softbuffer (repeated positions at
+    L >= 2 sum, on CUDA in no fixed order: equal up to float32 rounding of
+    the sum); one ``convcode.decode`` call decodes them all; the CRC16 is
+    one float32 GF(2) product, exact in full float32
+    (``utils.device.require_cuda`` turns TF32 off)."""
+    n_cand, res, scr, buf, crc_m, mask = _blind_tables(cell, subframe, cfi, rnti, dci_len,
+                                                       ue_specific, grid_eq.device)
+    n_coded = dci_len + 16
+    lead = grid_eq.shape[:-2]
+    y, nv = _gather_re(grid_eq, nv_eff, res)
+    llr = modulation.demodulate_soft(y, 2, nv) * scr  # [..., 2M]
+    buffers = ratematch.dematch(llr, buf, n_cand * 3 * n_coded)
+    flat = buffers.reshape(-1, 3, n_coded).transpose(1, 2).contiguous()
+    hard = convcode.decode(flat).reshape(lead + (n_cand, n_coded))
+    syn = torch.remainder(torch.round(hard.to(torch.float32) @ crc_m) + mask, 2.0)
+    return hard[..., :dci_len], syn.sum(-1) == 0
+
+
+def blind_hits(cands, hard: np.ndarray, ok: np.ndarray, dci_len: int):
+    """Host-side hit selection for ONE batch element of
+    ``pdcch_blind_batch`` output: list of (start_cce, L, payload_bits),
+    deduplicated by payload (overlapping aggregation levels decode the
+    same circular-buffer codeword; the first, smallest-L hit is kept)."""
+    hits = []
+    seen = set()
+    for (start, l), bits, good in zip(cands, hard, ok):
+        if good:
+            key = bits[:dci_len].tobytes()
+            if key not in seen:
+                seen.add(key)
+                hits.append((start, l, bits[:dci_len]))
+    return hits
+
+
+def pdcch_blind_decode(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
+                       cfi: int, rnti: int, dci_len: int, ue_specific: bool = True):
+    """Blind search of one subframe's [n_sym_sf, n_sc] equalized grid for
+    one DCI size: list of (start_cce, L, payload_bits) passing the
+    RNTI-masked CRC. All candidates decode in one device call."""
+    n_cce, _ = pdcch_geometry(cell, cfi)
+    cands = search_space_candidates(n_cce, rnti, subframe, ue_specific)
+    if not cands:
+        return []
+    hard, ok = pdcch_blind_batch(cell, grid_eq, nv_eff, subframe, cfi, rnti, dci_len,
+                                 ue_specific)
+    return blind_hits(cands, to_host(hard), to_host(ok), dci_len)

@@ -1,6 +1,8 @@
 """eNodeB-side downlink subframe generation (host numpy): the test vectors
 and benchmark inputs of the receive chain. Counterpart of
-``srsue_tpu/phy/enb_tx.py`` for one antenna port (TM1)."""
+``srsue_tpu/phy/enb_tx.py`` for one antenna port (TM1), plus the full
+control + data subframe (CRS, PCFICH, one PDCCH, PDSCH) that
+``bench.build_clean`` assembles."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import numpy as np
 from srsue_tpu.phy import regrid, seq
 from srsue_tpu.phy.cell import Cell
 
-from . import ofdm
+from . import control, ofdm
 from .pdsch import PdschCodec
 
 
@@ -42,6 +44,21 @@ def build_pdsch_subframe(cell: Cell, codec: PdschCodec,
     add_sync(cell, grid, sf)
     codec.map_to_grid(grid, codec.encode_symbols(payload))
     return [grid]
+
+
+def build_dl_subframe(cell: Cell, codec: PdschCodec, payload: np.ndarray, cfi: int,
+                      dci_bits: np.ndarray, rnti: int, n_cce: int,
+                      l_aggr: int) -> np.ndarray:
+    """Port-0 grid of a control + data subframe: CRS, PCFICH with `cfi`, the
+    DCI `dci_bits` for `rnti` on CCEs n_cce .. n_cce + l_aggr - 1, and the
+    PDSCH transport block (the order of ``bench.build_clean``)."""
+    sf = codec.subframe
+    grid = empty_grid(cell)
+    add_crs(cell, grid, sf, 0)
+    control.pcfich_map(cell, grid, sf, cfi)
+    control.pdcch_map(cell, grid, sf, cfi, dci_bits, rnti, n_cce, l_aggr)
+    codec.map_to_grid(grid, codec.encode_symbols(payload))
+    return grid
 
 
 def awgn(rng: np.random.Generator, x: np.ndarray, snr_db: float,

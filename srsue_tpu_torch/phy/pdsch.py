@@ -10,6 +10,8 @@ and as tensors on its device for the receive path. HARQ soft-combining is
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -211,3 +213,11 @@ class PdschCodec:
         """Equalized symbols [..., n_re] and per-RE noise -> (payload,
         tb_ok, blk_ok, iters)."""
         return self.decode_softbuffers(self.dematch(self.demap_llrs(x_eq, nv_eff)))
+
+
+@functools.lru_cache(maxsize=64)
+def codec(cell: Cell, grant: DlGrant, rnti: int, subframe: int, cfi: int = 1,
+          n_turbo_iters: int = 8, device: str | torch.device = "cpu") -> PdschCodec:
+    """The cached codec of one configuration (early exit, r2max), as the
+    reference's ``codec`` getter, on `device`."""
+    return PdschCodec(cell, grant, rnti, subframe, cfi, n_turbo_iters, device=device)

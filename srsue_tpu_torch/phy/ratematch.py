@@ -1,10 +1,11 @@
-"""Turbo rate matching / dematching (36.212 5.1.4.1).
+"""Turbo and convolutional rate matching / dematching (36.212 5.1.4.1,
+5.1.4.2).
 
-Counterpart of ``srsue_tpu/phy/ratematch.py`` for the turbo path. The
-sub-block interleaver and circular-buffer selection are host-precomputed
-index maps (numpy); on the device, dematching is one scatter-add
-``w[idx[e]] += llr[e]`` (HARQ soft-combining is ``+`` of the buffers).
-NULL (dummy/filler) positions never appear in an index map.
+Counterpart of ``srsue_tpu/phy/ratematch.py``. The sub-block interleaver
+and circular-buffer selection are host-precomputed index maps (numpy); on
+the device, dematching is one scatter-add ``w[idx[e]] += llr[e]`` (HARQ
+soft-combining is ``+`` of the buffers). NULL (dummy/filler) positions
+never appear in an index map.
 """
 
 from __future__ import annotations
@@ -20,6 +21,12 @@ C_SB = 32  # sub-block interleaver columns
 PERM_TURBO = np.array(
     [0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22, 14, 30,
      1, 17, 9, 25, 5, 21, 13, 29, 3, 19, 11, 27, 7, 23, 15, 31],
+    dtype=np.int64,
+)
+# 36.212 Table 5.1.4-2 (convolutional) inter-column permutation
+PERM_CONV = np.array(
+    [1, 17, 9, 25, 5, 21, 13, 29, 3, 19, 11, 27, 7, 23, 15, 31,
+     0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22, 14, 30],
     dtype=np.int64,
 )
 
@@ -87,6 +94,19 @@ def turbo_rm_indices(k_stream: int, e: int, rv: int, n_cb: int | None = None,
     k0 = turbo_k0(k_stream, rv, None if n_cb is None else ncb)
     rolled = np.roll(w, -(k0 % len(w)))
     vals = rolled[rolled != NULL]
+    return np.tile(vals, -(-e // len(vals)))[:e]
+
+
+@functools.lru_cache(maxsize=512)
+def conv_rm_indices(k_stream: int, e: int) -> np.ndarray:
+    """Convolutional rate matching (PDCCH, PBCH): the three streams, each
+    sub-block interleaved with PERM_CONV, read from k0 = 0 skipping NULLs
+    and repeated when E exceeds the 3*k_stream coded bits (then dematch
+    sums the repeats)."""
+    base = _interleave_idx(k_stream, PERM_CONV)
+    w = np.concatenate([np.where(base == NULL, NULL, base + j * k_stream)
+                        for j in range(3)])
+    vals = w[w != NULL]
     return np.tile(vals, -(-e // len(vals)))[:e]
 
 

@@ -2,12 +2,15 @@
 
     python -m srsue_tpu_torch.profile_chain [B]
 
-Runs the 20 MHz MCS 28 chain (``entry.entry``) at B subframes (default
-256) with the turbo decoder in each of its forms -- forced 8 iterations
-(the fused half), 8 masked iterations and CRC early exit -- once each under
-``torch.profiler`` after a warm-up call, and prints for each: the wall
-time of the call, the summed device time of its kernels, the device's idle
-share of the wall time, and the kernels with the most device time.
+Runs, at B subframes (default 256), once each under ``torch.profiler``
+after a warm-up call: the grant-known 20 MHz MCS 28 chain (``entry.entry``)
+with the turbo decoder in each of its forms -- forced 8 iterations (the
+fused half), 8 masked iterations and CRC early exit --; the blind control +
+data chain (``rx.make_rx``, ZF) with CRC early exit and forced; and its
+control stage alone (full-grid ZF, PCFICH, blind search). Prints for each:
+the wall time of the call, the summed device time of its kernels, the
+device's idle share of the wall time, and the kernels with the most device
+time.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import entry
+from . import entry, rx
+from .phy import chest, dci, ofdm
 from .utils.device import require_cuda
 
 
@@ -42,12 +46,32 @@ def breakdown(fn, args, top: int = 12) -> dict:
                     for e in kernels[:top]]}
 
 
+def blind_runs(batch: int, dev):
+    """(label, fn, args) of the blind chain (early exit, forced) and its
+    control stage, on bench.py's subframes at 26 dB."""
+    clean = rx.build_clean(batch, n_distinct=4)
+    iq = torch.as_tensor(rx.add_noise(clean.rng, clean.td, clean.p_sig, 26.0), device=dev)
+    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
+            clean.dci_bits, clean.payloads)
+    grid = ofdm.demodulate(clean.cell, iq)
+    h, nvar, _ = chest.estimate(clean.cell, grid, clean.subframe)
+    ctrl = rx.control_stage(clean.cell, clean.subframe, clean.cfi, clean.rnti,
+                            dci.size_0_1a(clean.cell.n_prb))
+    return [("blind early exit", rx.make_rx(*args, early_exit=True, device=dev), (iq,)),
+            ("blind forced 8", rx.make_rx(*args, early_exit=True, forced=True, device=dev),
+             (iq,)),
+            ("control stage", ctrl, (grid, h, nvar))]
+
+
 def main(batch: int = 256) -> None:
     dev = require_cuda()
+    runs = []
     for mode, form in (("forced 8", {"forced": True}),
                        ("masked 8", {"early_exit": False}),
                        ("early exit", {"early_exit": True})):
         fn, args, _ = entry.entry(dev, batch=batch, n_distinct=4, **form)
+        runs.append((mode, fn, args))
+    for mode, fn, args in runs + blind_runs(batch, dev):
         r = breakdown(fn, args)
         print(f"{mode} B={batch}: wall {r['wall_ms']:.3f} ms, kernels "
               f"{r['device_ms']:.3f} ms, device idle {100 * r['idle_share']:.1f}%")

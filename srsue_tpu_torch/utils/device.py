@@ -1,8 +1,10 @@
 """Explicit device selection for the port: no global default device, and
-no silent move to the CPU when CUDA is asked for but missing."""
+no silent move to the CPU when CUDA is asked for but missing; and the
+device-neutral copy of a result to the host."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -33,3 +35,11 @@ def resolve(device: str | torch.device) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor on any device (or an array-like) as a numpy array; a CUDA
+    tensor is copied to the host, which waits for the work that makes it."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -9,7 +9,8 @@ offset-free boundary metrics (both perform the same float32 operations;
 the kernel's compiler may contract or reorder them). The bfloat16 kernel
 (v5) against its bf16 twin: one bf16 unit in the last place of the largest
 value (2^-7 of it), since both round the same operations. Decisions of the
-decoder and the chain are equal.
+decoder and the chain are equal; the Viterbi kernel's hard bits equal its
+twin's exactly (the same float32 operations, each rounded once).
 """
 
 import numpy as np
@@ -156,3 +157,80 @@ def test_chain_on_card_matches_cpu(cuda_device, n_prb, mcs):
     for x, y in zip(gpu, cpu):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     np.testing.assert_array_equal(gpu[0].numpy(), payloads)
+
+
+def _viterbi_llrs(batch, n, snr_db, seed):
+    from srsue_tpu_torch.phy import convcode
+
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (batch, n)).astype(np.uint8)
+    x = 1.0 - 2.0 * np.swapaxes(convcode.encode(bits), -1, -2)
+    var = 10.0 ** (-snr_db / 10.0)
+    y = x + np.sqrt(var) * rng.standard_normal(x.shape)
+    return np.ascontiguousarray(2.0 * y / var, dtype=np.float32), bits
+
+
+@pytest.mark.parametrize("batch,n", [(4608, 44), (300, 54), (1536, 31), (4, 40), (33, 33),
+                                     (9, 96), (5, 1)])
+def test_viterbi_kernel_matches_plain(cuda_device, batch, n):
+    from srsue_tpu_torch.kernels import viterbi
+    from srsue_tpu_torch.phy import convcode
+
+    for snr in (0.0, 10.0):
+        llr_np, bits = _viterbi_llrs(batch, n, snr, n)
+        llr = torch.as_tensor(llr_np, device=cuda_device)
+        before = viterbi.launches
+        got = convcode.decode(llr)
+        assert viterbi.launches == before + 1
+        torch.testing.assert_close(got, convcode.decode_plain(llr), rtol=0, atol=0)
+        torch.testing.assert_close(got.cpu(), convcode.decode(llr.cpu()), rtol=0, atol=0)
+        if snr == 10.0 and n >= 6:
+            np.testing.assert_array_equal(got.cpu().numpy(), bits)
+
+
+def test_viterbi_wrapper_rejects_bad_input(cuda_device):
+    from srsue_tpu_torch.kernels import viterbi
+    from srsue_tpu_torch.phy import convcode
+
+    with pytest.raises(ValueError):
+        convcode.decode(torch.zeros(2, 97, 3, device=cuda_device))
+    with pytest.raises(TypeError):
+        convcode.decode(torch.zeros(2, 40, 3, device=cuda_device, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        convcode.decode(torch.zeros(2, 3, 40, device=cuda_device).transpose(1, 2))
+    before = viterbi.launches
+    assert convcode.decode(torch.zeros(0, 40, 3, device=cuda_device)).shape == (0, 40)
+    assert viterbi.launches == before
+
+
+@pytest.mark.parametrize("eq,forced", [("zf", False), ("mmse", False), ("zf_scalar", True)])
+def test_blind_chain_on_card_matches_cpu(cuda_device, eq, forced):
+    from srsue_tpu_torch import rx
+    from srsue_tpu_torch.kernels import viterbi
+
+    clean = rx.build_clean(3, cell=Cell(n_prb=25, cell_id=42), mcs=9, cfi=2)
+    noisy = rx.add_noise(clean.rng, clean.td, clean.p_sig, 12.0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        fn = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
+                        clean.dci_bits, clean.payloads, True, eq, forced=forced, device=dev)
+        before = viterbi.launches
+        out[str(dev)] = {k: float(v) for k, v in fn(torch.as_tensor(noisy, device=dev)).items()}
+        assert viterbi.launches == before + (str(dev) != "cpu")
+    assert out["cpu"] == out[str(cuda_device)]
+    assert out["cpu"]["n_dci"] == out["cpu"]["n_ok"] == out["cpu"]["cfi_ok"] == 3
+
+
+def test_ue_dl_on_card_matches_cpu(cuda_device):
+    from srsue_tpu_torch import rx
+    from srsue_tpu_torch.phy.ue_dl import UeDl
+
+    clean = rx.build_clean(2, cell=Cell(n_prb=25, cell_id=42), mcs=9, cfi=2)
+    noisy = rx.add_noise(clean.rng, clean.td, clean.p_sig, 12.0)
+    cpu = UeDl(clean.cell).process(noisy, clean.subframe, clean.rnti)
+    gpu = UeDl(clean.cell, device=cuda_device).process(noisy, clean.subframe, clean.rnti)
+    assert gpu.cfi == cpu.cfi == 2 and gpu.grants == cpu.grants
+    for a, b in zip((gpu.payload, gpu.tb_ok, gpu.turbo_iters),
+                    (cpu.payload, cpu.tb_ok, cpu.turbo_iters)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(gpu.payload, clean.payloads)
