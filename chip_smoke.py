@@ -5,10 +5,13 @@
 
 Phases, each of which fails the run:
   1. environment: card, power limit, torch/CUDA versions; builds the CUDA
-     kernels from srsue_tpu_torch/csrc/ (nvcc, sm_90a) into build/kernels/;
+     kernels from srsue_tpu_torch/csrc/ (nvcc, sm_90a) into build/kernels/
+     and prints ptxas's registers and spills and every kernel's resident
+     warps per SM (the CUDA occupancy calculator);
   2. the BCJR half-iteration kernel against its plain PyTorch twin at the
-     shapes the main path gives it, with random window boundaries; times
-     both with CUDA events;
+     shapes the main path gives it (and K=6144, lw=104 and a window of 36,
+     whose last checkpoint segment is short), with random window
+     boundaries; times both with CUDA events;
   3. the main path, entry(): 20 MHz MCS 28 (TBS 75376, 13 blocks of
      K=5824), B=256 subframes at 26 dB, CRC early exit and all 8
      iterations masked (converged blocks frozen); every TB passes its CRC
@@ -39,8 +42,11 @@ Phases, each of which fails the run:
      (TBS 75376), every payload bit-exact; a wrong RNTI gets no grant; DL
      HARQ: rv0 alone fails, rv0 + rv2 soft-combined passes and delivers.
 
-Prints the kernels' JSON record, the nvidia-smi name/power-limit line and,
-last, {"ok": true, "device": ...}. Exits non-zero with no result when CUDA
+Prints the kernels' JSON record (time, plain twin's time, launches on the
+path, warps per SM, and the least time the card could take for the same
+work: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the H100
+SXM's published peaks, whichever is larger), the nvidia-smi
+name/power-limit line and, last, {"ok": true, "device": ...}. Exits non-zero with no result when CUDA
 is unavailable or a phase fails. Imports no JAX.
 """
 
@@ -61,9 +67,27 @@ KERNEL_SHAPES = (  # (label, K, lw, blocks)
     ("K=512 lw=64", 512, 64, BATCH),
     ("K=432 lw=48 (odd W=9)", 432, 48, BATCH),
     ("K=256 W=1", 256, 256, BATCH),
+    ("K=6144 lw=64", 6144, 64, BATCH * 13),
+    ("flagship K=5824 lw=104", 5824, 104, BATCH * 13),  # the TPU's block-minor window
 )
-# the radix-4 instances also at the TPU's block-minor window for K=5824
-R4_SHAPES = KERNEL_SHAPES + (("flagship K=5824 lw=104", 5824, 104, BATCH * 13),)
+# r2max takes any window: 36 ends in a short checkpoint segment
+R2MAX_SHAPES = KERNEL_SHAPES + (("K=432 lw=36 (short last segment)", 432, 36, BATCH),)
+# Peaks of an H100 SXM at its 700 W limit (NVIDIA's H100 datasheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# Float32 operations per trellis step that the algorithm needs, counted from
+# the kernels' arithmetic (bcjr_core.cuh, bcjr_half_r4.cu): a radix-2 step is
+# 4 for the branch metrics, 16 adds and 8 maxima forward, 15 to normalise,
+# then 4 + 32 adds + 24 maxima + 2 backward with the extrinsic, and 15 to
+# normalise (120); the fused half adds the gathered a-priori (121); radix-4
+# does two steps in 8 bases, 64 adds and 48 maxima forward and 64 adds, 56
+# maxima and 6 backward, normalised every 8 steps (~104 per step). The
+# checkpointed kernels' recomputation is not counted: it is not needed work.
+R2_OPS_PER_STEP, FUSED_OPS_PER_STEP, R4_OPS_PER_STEP = 120, 121, 104
+# Viterbi: per state and trellis step 2 adds, a compare and a select of the
+# path metric and a shift and an or of the survivor word, and one operation
+# of the max-normalisation every 2 steps (7); two passes of n steps
+VITERBI_OPS_PER_STATE_STEP = 7
 TURBO = "srsue_tpu/phy/turbo_pallas.py"
 NEW_KERNELS = {  # instance: (source, the TPU kernel it replaces)
     "v2v3": ("srsue_tpu_torch/csrc/bcjr_half.cu", f"{TURBO}:148"),
@@ -100,6 +124,28 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that moves `nbytes` of
+    device memory and does `ops` float32 operations, and which bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def half_bound(n: int, lw: int, ops_per_step: int) -> dict:
+    """[n, lw] half: lin, par, a0, b0 read once; ext, alast, bfirst
+    written once (float32)."""
+    return bound(4 * n * (3 * lw + 4 * 8), ops_per_step * n * lw)
+
+
+def fused_bound(blocks: int, k: int, lw: int) -> dict:
+    """Fused half: sys, par, ext_other, idx, alast_prev, bfirst_prev,
+    tail_b read once; ext, alast, bfirst written once."""
+    w = k // lw
+    nbytes = 4 * (4 * blocks * k + k + 4 * blocks * w * 8 + blocks * 8)
+    return bound(nbytes, FUSED_OPS_PER_STEP * blocks * k)
+
+
 def zero_counts(bcjr) -> None:
     for name in bcjr.launches:
         bcjr.launches[name] = 0
@@ -123,7 +169,7 @@ def half_args(torch, dev, k, lw, blocks):
 def phase_kernel(torch, bcjr, dev):
     """Kernel vs plain twin at the main path's shapes."""
     rows = []
-    for label, k, lw, blocks in KERNEL_SHAPES:
+    for label, k, lw, blocks in R2MAX_SHAPES:
         w = k // lw
         args = half_args(torch, dev, k, lw, blocks)
         got = bcjr.bcjr_half_windowed(*args)
@@ -145,11 +191,13 @@ def phase_kernel(torch, bcjr, dev):
         plain_ms = cuda_ms(torch, lambda: bcjr.half_windowed_plain(*core), reps=3)
         half_ms = cuda_ms(torch, lambda: bcjr.bcjr_half_windowed(*args), reps=20)
         half_plain_ms = cuda_ms(torch, lambda: bcjr.bcjr_half_windowed_plain(*args), reps=3)
+        b = half_bound(n, lw, R2_OPS_PER_STEP)
         rows.append({"shape": label, "windows": n, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, **b})
         print(f"phase 2: {label} B={blocks} windows={n}: max|diff| {err:.3g} "
               f"(rtol {RTOL:g}, atol {ATOL:g}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; whole half {half_ms:.4f} ms, "
+              f"{ms:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_by']}), plain "
+              f"{plain_ms:.4f} ms; whole half {half_ms:.4f} ms, "
               f"plain {half_plain_ms:.4f} ms", flush=True)
     return rows
 
@@ -247,15 +295,17 @@ def bf16_tol(ref):
 
 
 def phase_new_kernels(torch, bcjr, turbo, dev):
-    """The other half-iteration instances and the fused half against their
-    plain twins at the path shapes; their times beside the twins'. Returns
-    {instance: {max_abs_err, ms, plain_ms}} at the flagship lw=64 shape,
-    with the error over every shape."""
+    """The other half-iteration instances and the fused half (with both
+    index maps, qpp_inv and qpp_perm) against their plain twins at the path
+    shapes; their times beside the twins'. Returns {instance: {max_abs_err,
+    ms, plain_ms, bound_ms, bound_by}} at the flagship lw=64 shape, with the
+    error over every shape."""
     out = {}
     for kernel in ("v2v3", "v4", "v5"):
         tol = bf16_tol if kernel == "v5" else f32_tol
         errs = []
-        for label, k, lw, blocks in (KERNEL_SHAPES if kernel == "v2v3" else R4_SHAPES):
+        ops = R2_OPS_PER_STEP if kernel == "v2v3" else R4_OPS_PER_STEP
+        for label, k, lw, blocks in KERNEL_SHAPES:
             args = half_args(torch, dev, k, lw, blocks)
             got = bcjr.bcjr_half_windowed(*args, kernel=kernel)
             ref = bcjr.bcjr_half_windowed_plain(*args, kernel=kernel)
@@ -266,29 +316,36 @@ def phase_new_kernels(torch, bcjr, turbo, dev):
                     args[5].reshape(n, 8), args[6].reshape(n, 8))
             ms = cuda_ms(torch, lambda: bcjr.half_windowed(*core, kernel), reps=50)
             plain_ms = cuda_ms(torch, lambda: bcjr.half_windowed_plain(*core, kernel), reps=3)
+            b = half_bound(n, lw, ops)
             print(f"phase 5: {kernel} {label} windows={n}: max|diff| {errs[-1]:.3g}; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+                  f"{ms:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_by']}), plain "
+                  f"{plain_ms:.4f} ms", flush=True)
             if label.startswith("flagship K=5824 lw=64"):
-                out[kernel] = {"ms": ms, "plain_ms": plain_ms}
+                out[kernel] = {"ms": ms, "plain_ms": plain_ms, **b}
         out[kernel]["max_abs_err"] = max(errs)
     errs = []
     for label, k, lw, blocks in KERNEL_SHAPES:
         sys_h, par_h, other, ts, tp, al, bf, _ = half_args(torch, dev, k, lw, blocks)
-        inv = turbo.qpp_tensors(k, dev)[1]
-        fused = (sys_h, par_h, other, inv.to(torch.int32), al, bf, turbo.tail_beta(ts, tp), lw)
-        got = bcjr.bcjr_half_fused(*fused)
-        ref = bcjr.bcjr_half_fused_plain(*fused)
-        torch.cuda.synchronize()
-        errs.append(max_diff(torch, got, ref, f32_tol))
+        perm, inv = turbo.qpp_tensors(k, dev)
+        for idx in (perm, inv):  # the second half's map, then the first's
+            fused = (sys_h, par_h, other, idx.to(torch.int32), al, bf,
+                     turbo.tail_beta(ts, tp), lw)
+            got = bcjr.bcjr_half_fused(*fused)
+            ref = bcjr.bcjr_half_fused_plain(*fused)
+            torch.cuda.synchronize()
+            errs.append(max_diff(torch, got, ref, f32_tol))
         # the unfused form of the same half: gather, injection and NII shift in torch
         unfused = (sys_h, par_h, other[:, inv], ts, tp, al, bf, lw)
         ms = cuda_ms(torch, lambda: bcjr.bcjr_half_fused(*fused), reps=50)
         plain_ms = cuda_ms(torch, lambda: bcjr.bcjr_half_fused_plain(*fused), reps=3)
         unfused_ms = cuda_ms(torch, lambda: bcjr.bcjr_half_windowed(*unfused), reps=20)
-        print(f"phase 5: fused {label}: max|diff| {errs[-1]:.3g}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms; r2max half with torch glue {unfused_ms:.4f} ms", flush=True)
-        if label.startswith("flagship"):
-            out["fused"] = {"ms": ms, "plain_ms": plain_ms}
+        b = fused_bound(blocks, k, lw)
+        print(f"phase 5: fused {label}: max|diff| {max(errs[-2:]):.3g} (qpp_perm and "
+              f"qpp_inv); kernel {ms:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_by']}), "
+              f"plain {plain_ms:.4f} ms; r2max half with torch glue {unfused_ms:.4f} ms",
+              flush=True)
+        if label.startswith("flagship K=5824 lw=64"):
+            out["fused"] = {"ms": ms, "plain_ms": plain_ms, **b}
     out["fused"]["max_abs_err"] = max(errs)
     return out
 
@@ -367,8 +424,9 @@ def phase_viterbi(torch, np, viterbi, convcode, dev):
         print(f"phase 8: viterbi {label} B={batch} n={n}: kernel = decode_plain bit for bit "
               f"at 0/3/10 dB and random LLRs, 10 dB = sent bits; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms", flush=True)
-        if row is None:
-            row = {"ms": ms, "plain_ms": plain_ms}
+        if row is None:  # llr [B, n, 3] float32 in, [B, n] bytes out; 64 states, 2n steps
+            row = {"ms": ms, "plain_ms": plain_ms,
+                   **bound(batch * n * 13, VITERBI_OPS_PER_STATE_STEP * 64 * 2 * n * batch)}
     return {"max_abs_err": float(err), **row}
 
 
@@ -536,6 +594,15 @@ def main() -> int:
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line or line.startswith("=="):
             print(f"phase 1: ptxas {line.strip()}", flush=True)
+    # resident warps per SM at the flagship shapes (3,328 blocks of K=5824; the
+    # blind search's n=44), by the CUDA occupancy calculator
+    warps = {name: build.warps_per_sm(name, 64) for name in build.HALF_KERNELS}
+    warps["fused"] = build.warps_per_sm("fused", BATCH * 13, 5824, 64)
+    warps["viterbi"] = build.warps_per_sm("viterbi", 44)
+    print("phase 1: warps per SM at lw=64: " + ", ".join(
+        f"{k} {v}" for k, v in warps.items()) + "; at lw=104: " + ", ".join(
+        f"{k} {build.warps_per_sm(k, 104)}" for k in build.HALF_KERNELS) +
+        f", fused {build.warps_per_sm('fused', BATCH * 13, 5824, 104)}", flush=True)
 
     rows = phase_kernel(torch, bcjr, dev)
     fn, iq, want, launches = phase_chain(torch, entry, bcjr, dev)
@@ -564,14 +631,18 @@ def main() -> int:
         "replaces": f"{TURBO}:372",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": flag["ms"], "plain_ms": flag["plain_ms"]}]
+        "ms": flag["ms"], "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+        "bound_by": flag["bound_by"], "warps_per_sm": warps["r2max"]}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": new_launches[name], **new[name]})
+                        "replaces": replaces, "launches": new_launches[name], **new[name],
+                        "warps_per_sm": warps[name]})
     kernels.append({"name": "viterbi", "route": "cuda",
                     "source": "srsue_tpu_torch/csrc/viterbi.cu",
                     "replaces": "srsue_tpu/phy/convcode.py:85", "launches": vit_launches,
-                    **vit_row})
+                    **vit_row, "warps_per_sm": warps["viterbi"]})
+    for k in kernels:  # no single PyTorch call computes a max-log BCJR or a Viterbi
+        k["library_ms"] = None
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,9 @@ batches:
     (``turbo_pallas._bm_window``).
 The [n, lw] instances (``kernels.bcjr.KERNELS``) take random LLRs and
 boundaries; the fused half takes the [B, K] contract of the same windows
-with the QPP deinterleaver of K. Prints ms per half and each instance's
-ratio to v2v3 (the reference's v2, the tool's base), as the tool does.
+with the QPP deinterleaver of K. Prints ms per half, each instance's
+ratio to v2v3 (the reference's v2, the tool's base), as the tool does, and
+its resident warps per SM by the CUDA occupancy calculator.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import sys
 
 import torch
 
-from .kernels import bcjr
+from .kernels import bcjr, build
 from .phy import turbo
 from .utils.device import require_cuda
 
@@ -50,7 +51,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def run(device: torch.device, reps: int = 20) -> list[dict]:
-    """One row {shape, kernel, windows, ms} per shape and kernel instance."""
+    """One row {shape, kernel, windows, ms, warps} per shape and kernel
+    instance."""
     rows = []
     for label, k, lw, blocks in SHAPES:
         g = torch.Generator(device=device).manual_seed(k + lw)
@@ -64,12 +66,14 @@ def run(device: torch.device, reps: int = 20) -> list[dict]:
         a0, b0 = rnd(n, 8, scale=5.0), rnd(n, 8, scale=5.0)
         for kernel in bcjr.KERNELS:
             ms = cuda_ms(lambda: bcjr.half_windowed(lin, par, a0, b0, kernel), reps)
-            rows.append({"shape": label, "kernel": kernel, "windows": n, "ms": ms})
+            rows.append({"shape": label, "kernel": kernel, "windows": n, "ms": ms,
+                         "warps": build.warps_per_sm(kernel, lw)})
         idx = turbo.qpp_tensors(k, device)[1].to(torch.int32)
         fused = (lin.reshape(blocks, k), par.reshape(blocks, k), rnd(blocks, k, scale=3.0), idx,
                  a0.reshape(blocks, w, 8), b0.reshape(blocks, w, 8), rnd(blocks, 8, scale=5.0), lw)
         ms = cuda_ms(lambda: bcjr.bcjr_half_fused(*fused), reps)
-        rows.append({"shape": label, "kernel": "fused", "windows": n, "ms": ms})
+        rows.append({"shape": label, "kernel": "fused", "windows": n, "ms": ms,
+                     "warps": build.warps_per_sm("fused", blocks, k, lw)})
     return rows
 
 
@@ -77,7 +81,8 @@ def report(rows: list[dict]) -> list[str]:
     """Lines of ms per half and the ratio to v2v3 at the same shape."""
     base = {r["shape"]: r["ms"] for r in rows if r["kernel"] == "v2v3"}
     return [f"{r['shape']:26s} {r['kernel']:6s} {r['windows']:7d} windows: "
-            f"{r['ms']:8.4f} ms/half, v2v3/this {base[r['shape']] / r['ms']:.3f}x"
+            f"{r['ms']:8.4f} ms/half, v2v3/this {base[r['shape']] / r['ms']:.3f}x, "
+            f"{r['warps']} warps/SM"
             for r in rows]
 
 

@@ -1,18 +1,21 @@
 // Shared pieces of the port's BCJR kernels (bcjr_half.cu, bcjr_half_r4.cu,
 // bcjr_half_fused.cu): the RSC trellis as compile-time functions, the
-// radix-2 window recursion, and the launch configuration derived from the
-// shared memory one thread needs.
+// checkpointed radix-2 window recursion, and launch sizing.
 //
-// Every kernel keeps one window's state metrics in registers and the alpha
-// history of its windows in dynamic shared memory, [step][state][thread],
-// so that a warp's accesses hit 32 banks. The window rows of lin/par are
-// staged into shared memory with row stride lw + 1 words (conflict-free for
-// both the coalesced staging stores and the per-thread row reads).
+// The radix-2 kernels (bcjr_half.cu, bcjr_half_fused.cu) run one window per
+// thread with its 8 state metrics in registers. The forward pass stores
+// alpha in shared memory only at every C-th step, [segment][state][thread]
+// so that a warp's accesses hit 32 banks; the backward pass recomputes one
+// segment's alphas at a time into registers from its checkpoint. The
+// radix-4 kernels (bcjr_half_r4.cu) keep their whole even-step alpha
+// history in shared memory and size their blocks with launch_config.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 namespace bcjr {
 
@@ -90,60 +93,204 @@ __device__ __forceinline__ void normalise(float* x, int steps_done) {
   }
 }
 
-// One window's radix-2 forward and backward recursion.
-//   my_lin   the window's staged lin row (lw values); the extrinsic
-//            (posterior - lin) overwrites it step by step
-//   my_par   the window's staged parity row
-//   s_alpha  the block's alpha history [lw][8][tpb]; this thread's column
-//   a, b     in: alpha at the first step, beta after the last step;
-//            out: alpha after the last step, beta before the first step
+// ----------------------------------------------------- checkpointed window
+// A window of lw steps is cut into segments of C steps (the last may be
+// shorter); alpha is stored at the first step of each segment, C * 8
+// floats of recomputed alphas live in registers. At lw = 64 and C = 8 the
+// checkpoints take 256 B per window.
+template <int C>
+__host__ __device__ constexpr long long ckpt_bytes(int lw) {
+  return static_cast<long long>((lw + C - 1) / C) * kStates * sizeof(float);
+}
+
+// One forward step: a holds alpha before the step, then after it. Both
+// the forward pass and the backward pass's recomputation call this one
+// function, so every recomputed alpha equals the stored one bit for bit.
 template <Norm N>
-__device__ __forceinline__ void r2_window(float* my_lin, const float* my_par, float* s_alpha,
-                                          int tpb, int tid, int lw, float* a, float* b) {
-  // ---- forward: alpha[t] is the metric before step t ----
-  for (int t = 0; t < lw; ++t) {
-    const float hl = 0.5f * my_lin[t], hp = 0.5f * my_par[t];
-    const float gpp = hl + hp, gpm = hl - hp;
-    float nx[kStates];
+__device__ __forceinline__ void fwd_step(float* a, float l, float p, int steps_done) {
+  const float hl = 0.5f * l, hp = 0.5f * p;
+  const float gpp = hl + hp, gpm = hl - hp;
+  float nx[kStates];
 #pragma unroll
-    for (int s = 0; s < kStates; ++s) s_alpha[(t * kStates + s) * tpb + tid] = a[s];
+  for (int sp = 0; sp < kStates; ++sp) {
+    const int p0 = pred_state(sp, 0), p1 = pred_state(sp, 1);
+    nx[sp] = fmaxf(add_gamma(a[p0], p0, pred_input(sp, 0), gpp, gpm),
+                   add_gamma(a[p1], p1, pred_input(sp, 1), gpp, gpm));
+  }
+  normalise<N>(nx, steps_done);
 #pragma unroll
-    for (int sp = 0; sp < kStates; ++sp) {
-      const int p0 = pred_state(sp, 0), p1 = pred_state(sp, 1);
-      nx[sp] = fmaxf(add_gamma(a[p0], p0, pred_input(sp, 0), gpp, gpm),
-                     add_gamma(a[p1], p1, pred_input(sp, 1), gpp, gpm));
+  for (int s = 0; s < kStates; ++s) a[s] = nx[s];
+}
+
+// One backward step fused with the extrinsic: b holds beta after the
+// step, then before it; al is alpha before the step. Returns the
+// extrinsic (posterior - lin).
+template <Norm N>
+__device__ __forceinline__ float bwd_step(float* b, const float* al, float l, float p,
+                                          int steps_done) {
+  const float hl = 0.5f * l, hp = 0.5f * p;
+  const float gpp = hl + hp, gpm = hl - hp;
+  float nb[kStates];
+  float l0 = -CUDART_INF_F, l1 = -CUDART_INF_F;
+#pragma unroll
+  for (int s = 0; s < kStates; ++s) {
+    const float m0 = add_gamma(b[next_state(s, 0)], s, 0, gpp, gpm);
+    const float m1 = add_gamma(b[next_state(s, 1)], s, 1, gpp, gpm);
+    nb[s] = fmaxf(m0, m1);
+    l0 = fmaxf(l0, al[s] + m0);
+    l1 = fmaxf(l1, al[s] + m1);
+  }
+  normalise<N>(nb, steps_done);
+#pragma unroll
+  for (int s = 0; s < kStates; ++s) b[s] = nb[s];
+  return (l0 - l1) - l;
+}
+
+// Whether a pointer allows 16-byte accesses (and bulk copies).
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+__device__ __forceinline__ void from_bits(float& d, unsigned x) { d = __uint_as_float(x); }
+__device__ __forceinline__ void from_bits(int& d, unsigned x) { d = static_cast<int>(x); }
+
+// v[i] = row[t0 + i] for i < n (n <= C); as 16-byte loads when `vec`
+// (row + t0 16-byte aligned) and the segment is whole.
+template <int C, typename T>
+__device__ __forceinline__ void load_seg(const T* __restrict__ row, int t0, int n, bool vec,
+                                         T (&v)[C]) {
+  static_assert(sizeof(T) == 4 && C % 4 == 0, "16-byte loads of 4-byte values");
+  if (vec && n == C) {
+    const uint4* q = reinterpret_cast<const uint4*>(row + t0);
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j) {
+      const uint4 x = __ldg(q + j);
+      from_bits(v[4 * j], x.x);
+      from_bits(v[4 * j + 1], x.y);
+      from_bits(v[4 * j + 2], x.z);
+      from_bits(v[4 * j + 3], x.w);
     }
-    normalise<N>(nx, t + 1);
+  } else {
 #pragma unroll
-    for (int s = 0; s < kStates; ++s) a[s] = nx[s];
+    for (int i = 0; i < C; ++i)
+      if (i < n) v[i] = __ldg(row + t0 + i);
+  }
+}
+
+// row[t0 + i] = v[i] for i < n, as 16-byte stores under the same rule.
+template <int C>
+__device__ __forceinline__ void store_seg(float* __restrict__ row, int t0, int n, bool vec,
+                                          const float (&v)[C]) {
+  if (vec && n == C) {
+    float4* q = reinterpret_cast<float4*>(row + t0);
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j)
+      q[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (i < n) row[t0 + i] = v[i];
+  }
+}
+
+// One window's radix-2 forward and backward recursion, checkpointed.
+//   io     the window's rows, segment by segment: io.fetch(t0, n, seg)
+//          issues the loads of steps t0..t0+n-1, io.unpack(seg, n, l, p)
+//          gives their lin and par, io.store(t0, n, ext) writes their
+//          extrinsic (posterior - lin); with IO::kPrefetch the next
+//          segment's loads are issued before this one's recursion, so
+//          they are in flight while it runs (at the cost of registers)
+//   ckpt   this thread's first checkpoint word in shared memory; word
+//          (g * 8 + s) * stride holds alpha[s] at step g * C
+//   a, b   in: alpha at the window's first step, beta after its last;
+//          out: alpha after the last step, beta before the first
+// The forward recursion runs twice: once through, and once a segment at a
+// time, last first, from each checkpoint on the way back.
+template <int C, Norm N, class IO>
+__device__ __forceinline__ void r2_window(const IO& io, float* ckpt, int stride, int lw,
+                                          float* a, float* b) {
+  const int nseg = (lw + C - 1) / C;
+  typename IO::Seg cur, nxt;
+  if constexpr (IO::kPrefetch) io.fetch(0, min(C, lw), nxt);
+  for (int g = 0; g < nseg; ++g) {
+    const int t0 = g * C;
+    const int n = min(C, lw - t0);
+    if constexpr (IO::kPrefetch) {
+      cur = nxt;
+      if (g + 1 < nseg) io.fetch(t0 + C, min(C, lw - t0 - C), nxt);
+    } else {
+      io.fetch(t0, n, cur);
+    }
+    float l[C], p[C];
+    io.unpack(cur, n, l, p);
+#pragma unroll
+    for (int s = 0; s < kStates; ++s) ckpt[(g * kStates + s) * stride] = a[s];
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (i < n) fwd_step<N>(a, l[i], p[i], t0 + i + 1);
   }
 
-  // ---- backward, fused with the extrinsic ----
-  for (int t = lw - 1; t >= 0; --t) {
-    const float l = my_lin[t];
-    const float hl = 0.5f * l, hp = 0.5f * my_par[t];
-    const float gpp = hl + hp, gpm = hl - hp;
-    float nb[kStates];
-    float l0 = -CUDART_INF_F, l1 = -CUDART_INF_F;
-#pragma unroll
-    for (int s = 0; s < kStates; ++s) {
-      const float al = s_alpha[(t * kStates + s) * tpb + tid];
-      const float m0 = add_gamma(b[next_state(s, 0)], s, 0, gpp, gpm);
-      const float m1 = add_gamma(b[next_state(s, 1)], s, 1, gpp, gpm);
-      nb[s] = fmaxf(m0, m1);
-      l0 = fmaxf(l0, al + m0);
-      l1 = fmaxf(l1, al + m1);
+  if constexpr (IO::kPrefetch) io.fetch((nseg - 1) * C, lw - (nseg - 1) * C, nxt);
+  for (int g = nseg - 1; g >= 0; --g) {
+    const int t0 = g * C;
+    const int n = min(C, lw - t0);
+    if constexpr (IO::kPrefetch) {
+      cur = nxt;
+      if (g > 0) io.fetch(t0 - C, C, nxt);
+    } else {
+      io.fetch(t0, n, cur);
     }
-    my_lin[t] = (l0 - l1) - l;
-    normalise<N>(nb, lw - t);
+    float l[C], p[C];
+    io.unpack(cur, n, l, p);
+    float al[C][kStates];
 #pragma unroll
-    for (int s = 0; s < kStates; ++s) b[s] = nb[s];
+    for (int s = 0; s < kStates; ++s) al[0][s] = ckpt[(g * kStates + s) * stride];
+#pragma unroll
+    for (int i = 1; i < C; ++i) {
+      if (i < n) {
+#pragma unroll
+        for (int s = 0; s < kStates; ++s) al[i][s] = al[i - 1][s];
+        fwd_step<N>(al[i], l[i - 1], p[i - 1], t0 + i);
+      }
+    }
+#pragma unroll
+    for (int i = C - 1; i >= 0; --i)  // the extrinsic takes lin's register
+      if (i < n) l[i] = bwd_step<N>(b, al[i], l[i], p[i], lw - (t0 + i));
+    io.store(t0, n, l);
   }
+}
+
+// Warps of `kernel` resident on one SM at `threads` threads per block and
+// `smem` bytes of dynamic shared memory (the kernel's shared-memory limit
+// already set). Returns a CUDA error code.
+template <typename Kernel>
+int warps_per_sm(Kernel kernel, int threads, size_t smem, int* warps) {
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *warps = blocks * ((threads + 31) / 32);
+  return 0;
+}
+
+// Sets the kernel's dynamic shared-memory limit to `smem` bytes (with its
+// static shared memory the block may need more than the default 48 KB);
+// fails when that is above the card's opt-in maximum. Returns a CUDA
+// error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(smem_max)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
 // Threads per block, blocks and dynamic shared memory for a kernel whose
 // threads each need `per_thread` bytes of shared memory, `threads` threads
 // in all; sets the kernel's shared-memory limit. Returns a CUDA error code.
+// (The radix-4 kernels: their shared memory sets their occupancy.)
 template <typename Kernel>
 int launch_config(Kernel kernel, long long per_thread, long long threads, unsigned* tpb_out,
                   unsigned* blocks_out, size_t* smem_out) {

@@ -265,23 +265,37 @@ __global__ void bcjr_half_r4_kernel(const float* __restrict__ lin,
   }
 }
 
+// Shared memory of one thread: staged lin and par rows + even-step alphas.
+template <class A>
+long long per_thread(int lw) {
+  return static_cast<long long>(2 * (lw + 1) + kStates * (lw / 2)) * sizeof(typename A::V);
+}
+
 template <class A>
 int launch(const float* lin, const float* par, const float* a0, const float* b0, float* ext,
            float* alast, float* bfirst, long long n, int lw, void* stream) {
   // lw/2 double steps, normalised every 4: every LTE K is a multiple of 8
   if (n <= 0 || lw <= 0 || lw % bcjr::kNormEvery != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // shared memory of one thread: staged lin and par rows + even-step alphas
-  const long long per = static_cast<long long>(2 * (lw + 1) + kStates * (lw / 2)) *
-                        sizeof(typename A::V);
   unsigned tpb = 0, blocks = 0;
   size_t smem = 0;
-  const int rc = bcjr::launch_config(bcjr_half_r4_kernel<A>, per, (n + A::kLanes - 1) / A::kLanes,
-                                     &tpb, &blocks, &smem);
+  const int rc = bcjr::launch_config(bcjr_half_r4_kernel<A>, per_thread<A>(lw),
+                                     (n + A::kLanes - 1) / A::kLanes, &tpb, &blocks, &smem);
   if (rc != 0) return rc;
   bcjr_half_r4_kernel<A><<<blocks, tpb, smem, static_cast<cudaStream_t>(stream)>>>(
       lin, par, a0, b0, ext, alast, bfirst, n, lw);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident warps per SM at window length lw, for a grid of full blocks.
+template <class A>
+int warps(int lw, int* out) {
+  if (lw <= 0 || lw % bcjr::kNormEvery != 0) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned tpb = 0, blocks = 0;
+  size_t smem = 0;
+  const int rc = bcjr::launch_config(bcjr_half_r4_kernel<A>, per_thread<A>(lw), 1LL << 20,
+                                     &tpb, &blocks, &smem);
+  return rc != 0 ? rc : bcjr::warps_per_sm(bcjr_half_r4_kernel<A>, tpb, smem, out);
 }
 
 }  // namespace
@@ -301,5 +315,12 @@ int srsue_bcjr_half_v5(const float* lin, const float* par, const float* a0, cons
                        void* stream) {
   return launch<BF2>(lin, par, a0, b0, ext, alast, bfirst, n, lw, stream);
 }
+
+// Warps of the instance resident on one SM at window length lw, by the
+// CUDA occupancy calculator for the launch configuration above. Return a
+// CUDA error code.
+int srsue_bcjr_half_v4_warps(int lw, int* warps_out) { return warps<F32>(lw, warps_out); }
+
+int srsue_bcjr_half_v5_warps(int lw, int* warps_out) { return warps<BF2>(lw, warps_out); }
 
 }  // extern "C"

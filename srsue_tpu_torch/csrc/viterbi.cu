@@ -162,6 +162,15 @@ int launch(const float* llr, unsigned char* out, long long B, int n, cudaStream_
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NW>
+int warps(int* out) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, viterbi_kernel<NW>, 32 * kWarps, 0);
+  *out = blocks * kWarps;
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -177,6 +186,17 @@ int srsue_viterbi(const float* llr, unsigned char* out, long long B, int n, void
     case 1: return launch<1>(llr, out, B, n, st);
     case 2: return launch<2>(llr, out, B, n, st);
     default: return launch<3>(llr, out, B, n, st);
+  }
+}
+
+// Warps of the kernel for hypotheses of n steps resident on one SM, by the
+// CUDA occupancy calculator. Return a CUDA error code.
+int srsue_viterbi_warps(int n, int* warps_out) {
+  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((n + 31) / 32) {
+    case 1: return warps<1>(warps_out);
+    case 2: return warps<2>(warps_out);
+    default: return warps<3>(warps_out);
   }
 }
 

@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from srsue_tpu.phy.cell import Cell
-
 from .phy import chest, enb_tx, equalize, ofdm, ra
+from .phy.cell import Cell
 from .phy.pdsch import PdschCodec
 
 N_PRB, CELL_ID, SUBFRAME, MCS, RNTI = 100, 42, 6, 28, 0x1234

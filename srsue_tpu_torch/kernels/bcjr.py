@@ -335,8 +335,10 @@ def bcjr_half_fused(sys_h, par_h, ext_other, idx, alast, bfirst, tail_b, lw: int
     alast, bfirst [B, W, 8]), unshifted, in new tensors.
 
     For CUDA tensors with kernel "r2max" this is one launch of the fused
-    kernel; the other instances have no fused form and run with the gather
-    and the injection in torch. CPU tensors take the plain twin."""
+    kernel, which copies ext_other's rows into shared memory by TMA and so
+    needs K % 4 == 0 (every LTE block size) and a 16-byte aligned
+    ext_other; the other instances have no fused form and run with the
+    gather and the injection in torch. CPU tensors take the plain twin."""
     _check_fused(sys_h, par_h, ext_other, idx, alast, bfirst, tail_b, lw)
     _check_kernel(kernel, lw)
     if sys_h.device.type == "cuda" and kernel == "r2max":

@@ -66,6 +66,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srsue_bcjr_half_fused.restype = ctypes.c_int
     lib.srsue_viterbi.argtypes = [p, p, ll, i, p]
     lib.srsue_viterbi.restype = ctypes.c_int
+    # resident warps per SM of each kernel, by the CUDA occupancy calculator
+    for name in HALF_KERNELS:
+        fn = getattr(lib, f"srsue_bcjr_half_{name}_warps")
+        fn.argtypes = [i, p]
+        fn.restype = ctypes.c_int
+    lib.srsue_bcjr_half_fused_warps.argtypes = [ll, i, i, p]
+    lib.srsue_bcjr_half_fused_warps.restype = ctypes.c_int
+    lib.srsue_viterbi_warps.argtypes = [i, p]
+    lib.srsue_viterbi_warps.restype = ctypes.c_int
 
 
 def _compile(nvcc: str, sources: list[Path], so: Path) -> str:
@@ -116,3 +125,18 @@ def load() -> Library:
     lib = ctypes.CDLL(str(so))
     _bind(lib)
     return Library(lib, so, seconds, log)
+
+
+def warps_per_sm(kernel: str, *args: int) -> int:
+    """Warps of a kernel resident on one SM of the current CUDA device, by
+    the CUDA occupancy calculator for the launch configuration its wrapper
+    would use: ``kernel`` is a half instance of HALF_KERNELS (args: lw),
+    ``"fused"`` (args: B, K, lw) or ``"viterbi"`` (args: n)."""
+    lib = load().lib
+    fn = (lib.srsue_viterbi_warps if kernel == "viterbi"
+          else getattr(lib, f"srsue_bcjr_half_{kernel}_warps"))
+    out = ctypes.c_int(0)
+    rc = fn(*args, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"occupancy of {kernel} {args}: CUDA error {rc}")
+    return out.value

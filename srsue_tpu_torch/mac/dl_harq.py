@@ -14,11 +14,10 @@ from typing import Callable
 
 import numpy as np
 
-from srsue_tpu.mac.pdu import bits_to_bytes
-from srsue_tpu.phy.cell import DlGrant
-
+from ..phy.cell import DlGrant
 from ..phy.pdsch import PdschCodec
 from ..utils.device import to_host
+from .pdu import bits_to_bytes
 
 N_HARQ_PROC = 8
 BCCH_PID = -1

@@ -12,8 +12,8 @@ import functools
 import numpy as np
 import torch
 
-from srsue_tpu.phy import regrid
-from srsue_tpu.phy.cell import Cell
+from . import regrid
+from .cell import Cell
 
 
 @functools.lru_cache(maxsize=256)

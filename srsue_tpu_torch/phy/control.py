@@ -21,11 +21,9 @@ import math
 import numpy as np
 import torch
 
-from srsue_tpu.phy import crc, regrid, seq
-from srsue_tpu.phy.cell import Cell
-
 from ..utils.device import to_host
-from . import convcode, modulation, ratematch
+from . import convcode, crc, modulation, ratematch, regrid, seq
+from .cell import Cell
 
 # ---------------------------------------------------------------------------
 # REG geometry

@@ -13,9 +13,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from srsue_tpu.phy.cell import Cell, DlGrant, UlGrant
-
 from . import ra
+from .cell import Cell, DlGrant, UlGrant
 
 
 def _riv_bits(n_rb: int) -> int:

@@ -8,10 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from srsue_tpu.phy import regrid, seq
-from srsue_tpu.phy.cell import Cell
-
-from . import control, ofdm
+from . import control, ofdm, regrid, seq
+from .cell import Cell
 from .pdsch import PdschCodec
 
 

@@ -11,7 +11,7 @@ import functools
 import numpy as np
 import torch
 
-from srsue_tpu.phy.cell import MOD_16QAM, MOD_64QAM, MOD_BPSK, MOD_QPSK
+from .cell import MOD_16QAM, MOD_64QAM, MOD_BPSK, MOD_QPSK
 
 _A16 = 1.0 / np.sqrt(10.0)
 _A64 = 1.0 / np.sqrt(42.0)

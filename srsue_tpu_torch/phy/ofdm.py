@@ -11,7 +11,7 @@ import functools
 import numpy as np
 import torch
 
-from srsue_tpu.phy.cell import Cell
+from .cell import Cell
 
 
 @functools.lru_cache(maxsize=32)

@@ -15,11 +15,9 @@ import functools
 import numpy as np
 import torch
 
-from srsue_tpu.phy import crc, regrid, seq
-from srsue_tpu.phy.cell import Cell, DlGrant
-
 from ..utils.device import resolve
-from . import modulation, ratematch, segmentation, turbo
+from . import crc, modulation, ratematch, regrid, segmentation, seq, turbo
+from .cell import Cell, DlGrant
 
 FILLER_LLR = 1e4  # known-zero filler bits: saturated "bit 0" prior
 
@@ -38,7 +36,8 @@ def blk_crc_matrix(plan: segmentation.SegPlan, i: int, k: int) -> np.ndarray:
 
 
 class PdschCodec:
-    """Static-shape PDSCH encoder (host) and decoder (torch, on `device`).
+    """Static-shape PDSCH encoder (host) and decoder (torch, on `device`:
+    the current CUDA device by default, "cpu" for the plain twins).
 
     The turbo decoder runs ``n_turbo_iters`` iterations with the
     half-iteration kernel instance ``kernel`` (``kernels.bcjr.KERNELS``):
@@ -48,7 +47,7 @@ class PdschCodec:
 
     def __init__(self, cell: Cell, grant: DlGrant, rnti: int, subframe: int,
                  cfi: int = 1, n_turbo_iters: int = 8, early_exit: bool = True,
-                 device: str | torch.device = "cpu", kernel: str = "r2max",
+                 device: str | torch.device = "cuda", kernel: str = "r2max",
                  forced: bool = False):
         plan = segmentation.plan(grant.tbs)
         re_idx = regrid.pdsch_re(cell, subframe, cfi, grant.prb_start, grant.n_prb)
@@ -71,7 +70,7 @@ class PdschCodec:
 
     @classmethod
     def from_arrays(cls, cell: Cell, grant: DlGrant, re_idx, rm_idx, scr_pm1,
-                    blk_crc: dict, tb_crc, device: str | torch.device = "cpu",
+                    blk_crc: dict, tb_crc, device: str | torch.device = "cuda",
                     *, subframe: int | None = None, n_turbo_iters: int = 8,
                     early_exit: bool = True, kernel: str = "r2max",
                     forced: bool = False) -> "PdschCodec":
@@ -217,7 +216,7 @@ class PdschCodec:
 
 @functools.lru_cache(maxsize=64)
 def codec(cell: Cell, grant: DlGrant, rnti: int, subframe: int, cfi: int = 1,
-          n_turbo_iters: int = 8, device: str | torch.device = "cpu") -> PdschCodec:
+          n_turbo_iters: int = 8, device: str | torch.device = "cuda") -> PdschCodec:
     """The cached codec of one configuration (early exit, r2max), as the
     reference's ``codec`` getter, on `device`."""
     return PdschCodec(cell, grant, rnti, subframe, cfi, n_turbo_iters, device=device)

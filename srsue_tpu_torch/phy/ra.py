@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from srsue_tpu.phy.cell import MOD_16QAM, MOD_64QAM, MOD_QPSK, DlGrant
-
+from .cell import MOD_16QAM, MOD_64QAM, MOD_QPSK, DlGrant
 from .segmentation import plan
 
 # 36.213 Table 7.1.7.1-1: MCS -> (modulation order, I_TBS)

@@ -8,8 +8,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from srsue_tpu.phy import crc
-
+from . import crc
 from .turbo import VALID_K
 
 Z = 6144  # max code block size

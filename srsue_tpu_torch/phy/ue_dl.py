@@ -16,10 +16,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from srsue_tpu.phy.cell import Cell, DlGrant
-
 from ..utils.device import resolve, to_host
 from . import chest, control, dci, equalize, ofdm
+from .cell import Cell, DlGrant
 from .pdsch import codec as get_codec
 
 
@@ -40,10 +39,11 @@ class DlResult:
 
 
 class UeDl:
-    """Per-cell DL receiver on `device`, with codecs cached per grant."""
+    """Per-cell DL receiver on `device` (the current CUDA device by
+    default), with codecs cached per grant."""
 
     def __init__(self, cell: Cell, n_turbo_iters: int = 8,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         if cell.n_ports != 1:
             raise NotImplementedError(
                 "UeDl: 2-port (TM2) cells are not ported yet (ROADMAP Slice C item 15)")

@@ -18,9 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from srsue_tpu.phy.cell import Cell, DlGrant
-
 from .phy import chest, control, dci, enb_tx, equalize, ofdm, ra
+from .phy.cell import Cell, DlGrant
 from .phy.pdsch import PdschCodec
 
 N_PRB, CELL_ID, SUBFRAME, CFI, RNTI, MCS = 100, 42, 6, 1, 0x1234, 28
@@ -50,7 +49,8 @@ def build_clean(batch: int, cell: Cell | None = None, mcs: int = MCS,
     the defaults this draws exactly what ``bench.build_clean(batch)`` draws."""
     cell = cell or Cell(n_prb=N_PRB, cell_id=CELL_ID)
     grant = ra.dl_grant(cell.n_prb, mcs)
-    codec = PdschCodec(cell, grant, rnti=RNTI, subframe=SUBFRAME, cfi=cfi)
+    codec = PdschCodec(cell, grant, rnti=RNTI, subframe=SUBFRAME, cfi=cfi,
+                       device="cpu")  # the transmitter: its host tables only
     d = dci.Dci1A(riv=dci.riv_encode(cell.n_prb, 0, cell.n_prb), mcs=mcs,
                   harq_pid=0, ndi=True, rv=0, tpc=0)
     dci_bits = dci.pack_1a(cell.n_prb, d)
@@ -102,13 +102,14 @@ def control_stage(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
 def make_rx(cell: Cell, grant: DlGrant, subframe: int, cfi: int, rnti: int,
             dci_bits: np.ndarray, expected: np.ndarray, early_exit: bool,
             eq: str = "zf", kernel: str = "r2max", forced: bool = False,
-            device: str | torch.device = "cpu"):
+            device: str | torch.device = "cuda"):
     """The per-TTI chain of ``bench.make_rx``: fn(iq [B, sf_len] complex64 on
-    `device`) -> stats, a dict of 0-dim float32 tensors: n_ok (TBs passing
-    CRC), bit_match (share of payload bits equal to `expected` over the
-    passing TBs), mean_iters (turbo iterations per block), n_dci (subframes
-    whose blind search found `dci_bits` on a CRC-passing candidate), cfi_ok
-    (subframes whose PCFICH gave `cfi`), and max_iters.
+    `device`, the current CUDA device unless "cpu" is given) -> stats, a
+    dict of 0-dim float32 tensors: n_ok (TBs passing CRC), bit_match (share
+    of payload bits equal to `expected` over the passing TBs), mean_iters
+    (turbo iterations per block), n_dci (subframes whose blind search found
+    `dci_bits` on a CRC-passing candidate), cfi_ok (subframes whose PCFICH
+    gave `cfi`), and max_iters.
 
     eq: "zf" | "mmse" (per-RE noise-weighted demap) | "zf_scalar" (ZF with
     the noise averaged over the allocation before the demap). `kernel`,

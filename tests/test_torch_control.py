@@ -17,8 +17,9 @@ from srsue_tpu.phy import enb_tx as ref_tx
 from srsue_tpu.phy import equalize as ref_eq
 from srsue_tpu.phy import ofdm as ref_ofdm
 from srsue_tpu.phy import ratematch as ref_rm
-from srsue_tpu.phy.cell import Cell
+from srsue_tpu.phy.cell import Cell as RefCell
 from srsue_tpu_torch.phy import chest, control, equalize, ofdm, ratematch
+from srsue_tpu_torch.phy.cell import Cell
 
 BANDWIDTHS = (6, 15, 25, 50, 75, 100)
 
@@ -28,18 +29,19 @@ def test_geometry_and_encoders_match_reference(n_prb):
     rng = np.random.default_rng(n_prb)
     for cfi in (1, 2, 3):
         cell = Cell(n_prb=n_prb, cell_id=(37 * n_prb + 11 * cfi) % 504)
+        rcell = RefCell(n_prb=n_prb, cell_id=(37 * n_prb + 11 * cfi) % 504)
         for l in range(4):
-            assert control.regs_in_symbol(cell, l) == ref_control.regs_in_symbol(cell, l)
-        assert control.pcfich_regs(cell) == ref_control.pcfich_regs(cell)
-        assert control.n_phich_groups(cell) == ref_control.n_phich_groups(cell)
-        assert control.phich_reg_table(cell) == ref_control.phich_reg_table(cell)
+            assert control.regs_in_symbol(cell, l) == ref_control.regs_in_symbol(rcell, l)
+        assert control.pcfich_regs(cell) == ref_control.pcfich_regs(rcell)
+        assert control.n_phich_groups(cell) == ref_control.n_phich_groups(rcell)
+        assert control.phich_reg_table(cell) == ref_control.phich_reg_table(rcell)
         n_cce, cce_re = control.pdcch_geometry(cell, cfi)
-        ref_n, ref_re = ref_control.pdcch_geometry(cell, cfi)
+        ref_n, ref_re = ref_control.pdcch_geometry(rcell, cfi)
         assert n_cce == ref_n
         np.testing.assert_array_equal(cce_re, ref_re)
         for sf in (0, 6):
             np.testing.assert_array_equal(control.pcfich_encode(cell, sf, cfi),
-                                          ref_control.pcfich_encode(cell, sf, cfi))
+                                          ref_control.pcfich_encode(rcell, sf, cfi))
         for rnti, sf, ue in ((0x1234, 6, True), (0xFFFF, 0, True), (0x4601, 9, False)):
             assert (control.search_space_candidates(n_cce, rnti, sf, ue)
                     == ref_control.search_space_candidates(n_cce, rnti, sf, ue))
@@ -47,13 +49,13 @@ def test_geometry_and_encoders_match_reference(n_prb):
         for l_aggr in (1, 2, 4, 8):
             np.testing.assert_array_equal(
                 control.pdcch_encode(cell, 6, dci_bits, 0x1234, l_aggr),
-                ref_control.pdcch_encode(cell, 6, dci_bits, 0x1234, l_aggr))
+                ref_control.pdcch_encode(rcell, 6, dci_bits, 0x1234, l_aggr))
         l_aggr = 4 if n_cce >= 4 else 1
-        grids = [ref_tx.empty_grid(cell) for _ in range(2)]
+        grids = [ref_tx.empty_grid(rcell) for _ in range(2)]
         control.pcfich_map(cell, grids[0], 6, cfi)
         control.pdcch_map(cell, grids[0], 6, cfi, dci_bits, 0x1234, 0, l_aggr)
-        ref_control.pcfich_map(cell, grids[1], 6, cfi)
-        ref_control.pdcch_map(cell, grids[1], 6, cfi, dci_bits, 0x1234, 0, l_aggr)
+        ref_control.pcfich_map(rcell, grids[1], 6, cfi)
+        ref_control.pdcch_map(rcell, grids[1], 6, cfi, dci_bits, 0x1234, 0, l_aggr)
         np.testing.assert_array_equal(grids[0], grids[1])
 
 
@@ -64,22 +66,22 @@ def test_conv_rate_matching_matches_reference(k):
                                       ref_rm.conv_rm_indices(k, e))
 
 
-def _control_subframes(cell, sf, cfi, rnti, dci_len, placements, snr_db, seed):
+def _control_subframes(rcell, sf, cfi, rnti, dci_len, placements, snr_db, seed):
     """Two noisy subframes of CRS + PCFICH + one DCI per (start, L) in
     placements, each with its own random payload; returns (iq, payloads)."""
     rng = np.random.default_rng(seed)
     tds, pays = [], []
     for _ in range(2):
-        grid = ref_tx.empty_grid(cell)
-        ref_tx.add_crs(cell, grid, sf, 0)
-        ref_control.pcfich_map(cell, grid, sf, cfi)
+        grid = ref_tx.empty_grid(rcell)
+        ref_tx.add_crs(rcell, grid, sf, 0)
+        ref_control.pcfich_map(rcell, grid, sf, cfi)
         bits = [rng.integers(0, 2, dci_len).astype(np.uint8) for _ in placements]
         for b, (start, l) in zip(bits, placements):
-            ref_control.pdcch_map(cell, grid, sf, cfi, b, rnti, start, l)
-        tds.append(ref_tx.to_waveform(cell, [grid])[0])
+            ref_control.pdcch_map(rcell, grid, sf, cfi, b, rnti, start, l)
+        tds.append(ref_tx.to_waveform(rcell, [grid])[0])
         pays.append(bits)
     td = np.stack(tds)
-    p_sig = float(np.mean(np.abs(td) ** 2)) * cell.nfft / cell.n_sc
+    p_sig = float(np.mean(np.abs(td) ** 2)) * rcell.nfft / rcell.n_sc
     return ref_tx.awgn(rng, td, snr_db, signal_power=p_sig)[0], pays
 
 
@@ -94,16 +96,17 @@ CASES = {  # n_prb, cell_id, subframe, cfi, rnti, dci_len, snr_db, DCI placement
 def test_pcfich_and_blind_search_match_reference(name):
     n_prb, cell_id, sf, cfi, rnti, dci_len, snr, placements = CASES[name]
     cell = Cell(n_prb=n_prb, cell_id=cell_id)
+    rcell = RefCell(n_prb=n_prb, cell_id=cell_id)
     n_cce, _ = control.pdcch_geometry(cell, cfi)
     cands = control.search_space_candidates(n_cce, rnti, sf)
-    iq, pays = _control_subframes(cell, sf, cfi, rnti, dci_len, placements, snr, n_prb)
+    iq, pays = _control_subframes(rcell, sf, cfi, rnti, dci_len, placements, snr, n_prb)
 
-    g_r = ref_ofdm.demodulate(cell, jnp.asarray(iq))
-    h_r, nv_r, _ = ref_chest.estimate(cell, g_r, sf, port=0)
+    g_r = ref_ofdm.demodulate(rcell, jnp.asarray(iq))
+    h_r, nv_r, _ = ref_chest.estimate(rcell, g_r, sf, port=0)
     ge_r, nve_r = ref_eq.zf(g_r, h_r, nv_r)
-    cfi_r, sc_r = ref_control.pcfich_decode(cell, ge_r, nve_r, sf)
+    cfi_r, sc_r = ref_control.pcfich_decode(rcell, ge_r, nve_r, sf)
     hard_r, ok_r = (np.asarray(v) for v in ref_control.pdcch_blind_batch(
-        cell, ge_r, nve_r, sf, cfi, rnti, dci_len))
+        rcell, ge_r, nve_r, sf, cfi, rnti, dci_len))
 
     g = ofdm.demodulate(cell, torch.as_tensor(iq))
     h, nv, _ = chest.estimate(cell, g, sf, port=0)
@@ -146,7 +149,8 @@ def test_batch_shaped_noise_broadcasts():
     over the grid gives, for PCFICH and the blind search."""
     n_prb, cell_id, sf, cfi, rnti, dci_len, snr, placements = CASES["25prb_cfi3"]
     cell = Cell(n_prb=n_prb, cell_id=cell_id)
-    iq, _ = _control_subframes(cell, sf, cfi, rnti, dci_len, placements[:1], snr, 3)
+    rcell = RefCell(n_prb=n_prb, cell_id=cell_id)
+    iq, _ = _control_subframes(rcell, sf, cfi, rnti, dci_len, placements[:1], snr, 3)
     g = ofdm.demodulate(cell, torch.as_tensor(iq))
     h, nv, _ = chest.estimate(cell, g, sf, port=0)
     ge, _ = equalize.zf(g, h, nv)

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels and the chain on the card, against
 the plain PyTorch twins. Every test needs a CUDA GPU and skips without
-one. This file imports no JAX, so on a machine without it run:
+one. This file imports no JAX and nothing of the JAX package, so on a
+machine without it run:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -17,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from srsue_tpu.phy import crc as crcmod
-from srsue_tpu.phy.cell import Cell
 from srsue_tpu_torch.entry import chain, make_waveforms
 from srsue_tpu_torch.kernels import bcjr
+from srsue_tpu_torch.phy import crc as crcmod
 from srsue_tpu_torch.phy import ra, turbo
+from srsue_tpu_torch.phy.cell import Cell
 from srsue_tpu_torch.phy.pdsch import PdschCodec
 
 pytestmark = pytest.mark.cuda
@@ -48,8 +49,11 @@ def _half_args(k, lw, blocks, device, seed):
             rnd(blocks, w, 8, scale=5.0), rnd(blocks, w, 8, scale=5.0), lw)
 
 
+# lw = 36 and 20 end in a short checkpoint segment (bcjr_core.cuh kSeg = 8);
+# 5 x 96 = 480 and 6 x 56 windows leave the last block of 128 part-full
 @pytest.mark.parametrize("k,lw,blocks", [
-    (5824, 64, 40), (512, 64, 64), (432, 48, 64), (256, 256, 64), (40, 40, 7)])
+    (5824, 64, 40), (512, 64, 64), (432, 48, 64), (256, 256, 64), (40, 40, 7),
+    (432, 36, 33), (40, 20, 9), (6144, 64, 5), (5824, 104, 6)])
 def test_kernel_matches_plain(cuda_device, k, lw, blocks):
     args = _half_args(k, lw, blocks, cuda_device, k)
     before = bcjr.launches["r2max"]
@@ -73,7 +77,8 @@ def _assert_matches(got, ref, kernel):
 
 
 @pytest.mark.parametrize("kernel", ["v2v3", "v4", "v5"])
-@pytest.mark.parametrize("k,lw,blocks", [(512, 64, 64), (432, 48, 63), (256, 256, 65)])
+@pytest.mark.parametrize("k,lw,blocks", [(512, 64, 64), (432, 48, 63), (256, 256, 65),
+                                         (6144, 64, 5), (5824, 104, 6)])
 def test_instance_matches_plain(cuda_device, kernel, k, lw, blocks):
     args = _half_args(k, lw, blocks, cuda_device, k)
     before = dict(bcjr.launches)
@@ -82,15 +87,45 @@ def test_instance_matches_plain(cuda_device, kernel, k, lw, blocks):
     _assert_matches(got, bcjr.bcjr_half_windowed_plain(*args, kernel=kernel), kernel)
 
 
-@pytest.mark.parametrize("k,lw,blocks", [(512, 64, 64), (432, 48, 63), (256, 256, 65)])
-def test_fused_matches_plain(cuda_device, k, lw, blocks):
-    sys_h, par_h, other, ts, tp, al, bf, _ = _half_args(k, lw, blocks, cuda_device, k + 1)
-    inv = turbo.qpp_tensors(k, cuda_device)[1].to(torch.int32)
-    args = (sys_h, par_h, other, inv, al, bf, turbo.tail_beta(ts, tp), lw)
+def _fused_case(device, k, lw, blocks, which):
+    sys_h, par_h, other, ts, tp, al, bf, _ = _half_args(k, lw, blocks, device, k + 1)
+    perm, inv = turbo.qpp_tensors(k, device)
+    idx = (inv if which == "inv" else perm).to(torch.int32)
+    args = (sys_h, par_h, other, idx, al, bf, turbo.tail_beta(ts, tp), lw)
     before = dict(bcjr.launches)
     got = bcjr.bcjr_half_fused(*args)
     assert bcjr.launches == {n: c + (n == "fused") for n, c in before.items()}
     _assert_matches(got, bcjr.bcjr_half_fused_plain(*args), "fused")
+
+
+# one code block per CTA at W = 91 and 96 (the row brought in by TMA); several
+# at small W, with a part-full last CTA (65 and 63 blocks); K = 40 as one window
+@pytest.mark.parametrize("k,lw,blocks", [(512, 64, 64), (432, 48, 63), (256, 256, 65),
+                                         (5824, 64, 9), (6144, 64, 7), (5824, 104, 5),
+                                         (40, 40, 130)])
+def test_fused_matches_plain(cuda_device, k, lw, blocks):
+    _fused_case(cuda_device, k, lw, blocks, "inv")
+
+
+@pytest.mark.parametrize("k,lw,blocks", [(5824, 64, 9), (512, 64, 65), (40, 40, 130)])
+def test_fused_perm_matches_plain(cuda_device, k, lw, blocks):
+    """The second half's index map (qpp_perm) in the gather."""
+    _fused_case(cuda_device, k, lw, blocks, "perm")
+
+
+def test_fused_splits_long_blocks(cuda_device):
+    """W = 192 windows of 32 spread one code block over two CTAs."""
+    _fused_case(cuda_device, 6144, 32, 3, "inv")
+
+
+def test_radix2_occupancy(cuda_device):
+    """Registers, not shared memory, set the radix-2 kernels' residency at
+    the flagship shape (K=5824, 91 windows of 64)."""
+    from srsue_tpu_torch.kernels import build
+
+    assert build.warps_per_sm("r2max", 64) >= 16
+    assert build.warps_per_sm("v2v3", 64) >= 16
+    assert build.warps_per_sm("fused", 3328, 5824, 64) >= 12
 
 
 def test_wrapper_rejects_cpu_cuda_mix(cuda_device):
@@ -227,7 +262,7 @@ def test_ue_dl_on_card_matches_cpu(cuda_device):
 
     clean = rx.build_clean(2, cell=Cell(n_prb=25, cell_id=42), mcs=9, cfi=2)
     noisy = rx.add_noise(clean.rng, clean.td, clean.p_sig, 12.0)
-    cpu = UeDl(clean.cell).process(noisy, clean.subframe, clean.rnti)
+    cpu = UeDl(clean.cell, device="cpu").process(noisy, clean.subframe, clean.rnti)
     gpu = UeDl(clean.cell, device=cuda_device).process(noisy, clean.subframe, clean.rnti)
     assert gpu.cfi == cpu.cfi == 2 and gpu.grants == cpu.grants
     for a, b in zip((gpu.payload, gpu.tb_ok, gpu.turbo_iters),

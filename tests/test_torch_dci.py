@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 
 from srsue_tpu.phy import dci as ref
-from srsue_tpu.phy.cell import Cell
+from srsue_tpu.phy.cell import Cell as RefCell
 from srsue_tpu_torch.phy import dci
+from srsue_tpu_torch.phy.cell import Cell
 
 BANDWIDTHS = (6, 15, 25, 50, 75, 100)
 
@@ -37,6 +38,7 @@ def test_sizes_and_riv_match_reference(n_rb):
 def test_pack_unpack_and_grants_match_reference(n_rb):
     rng = np.random.default_rng(n_rb)
     cell = Cell(n_prb=n_rb, cell_id=3)
+    rcell = RefCell(n_prb=n_rb, cell_id=3)
     nbg = -(-n_rb // dci.rbg_size(n_rb))
     n_vrb = n_rb // (2 if n_rb < 50 else 4)
     for _ in range(20):
@@ -69,8 +71,8 @@ def test_pack_unpack_and_grants_match_reference(n_rb):
             _same(got, runpack(n_rb, bits))
             if type(mine).__name__ != "Dci1C" or n_rb >= 50:
                 _same(got, mine)
-            _same(to_grant(cell, got), rto_grant(cell, runpack(n_rb, bits)))
+            _same(to_grant(cell, got), rto_grant(rcell, runpack(n_rb, bits)))
         rar = SimpleNamespace(riv=riv, mcs=int(rng.integers(0, 16)))
-        _same(dci.rar_to_ul_grant(cell, rar), ref.rar_to_ul_grant(cell, rar))
+        _same(dci.rar_to_ul_grant(cell, rar), ref.rar_to_ul_grant(rcell, rar))
     with pytest.raises(ValueError, match="empty"):
         dci.dci1_to_grant(cell, dci.Dci1(0, 5, 0, True, 0, 0))

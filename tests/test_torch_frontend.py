@@ -19,8 +19,9 @@ from srsue_tpu.phy import chest as ref_chest
 from srsue_tpu.phy import equalize as ref_eq
 from srsue_tpu.phy import modulation as ref_mod
 from srsue_tpu.phy import ofdm as ref_ofdm
-from srsue_tpu.phy.cell import Cell
+from srsue_tpu.phy.cell import Cell as RefCell
 from srsue_tpu_torch.phy import chest, enb_tx, equalize, modulation, ofdm
+from srsue_tpu_torch.phy.cell import Cell
 
 
 def _close(got, ref, rtol=1e-5, floor=1e-5):
@@ -41,13 +42,14 @@ def _grid_with_data(cell, subframe, rng):
 @pytest.mark.parametrize("n_prb", [6, 25])
 def test_ofdm_roundtrip_matches_reference(n_prb):
     cell = Cell(n_prb=n_prb, cell_id=11)
+    rcell = RefCell(n_prb=n_prb, cell_id=11)
     rng = np.random.default_rng(n_prb)
     grids = np.stack([_grid_with_data(cell, 2, rng) for _ in range(2)])
     td = ofdm.modulate_np(cell, grids)
-    np.testing.assert_array_equal(td, ref_ofdm.modulate_np(cell, grids))
+    np.testing.assert_array_equal(td, ref_ofdm.modulate_np(rcell, grids))
     noisy, _ = enb_tx.awgn(rng, td, 15.0)
     got = ofdm.demodulate(cell, torch.as_tensor(noisy))
-    _close(got.numpy(), ref_ofdm.demodulate(cell, jnp.asarray(noisy)))
+    _close(got.numpy(), ref_ofdm.demodulate(rcell, jnp.asarray(noisy)))
 
 
 def _faded_grids(cell, subframe, channels, rng):
@@ -67,6 +69,7 @@ def _faded_grids(cell, subframe, channels, rng):
 
 def test_chest_matches_reference_and_covers_every_filter_pick():
     cell = Cell(n_prb=25, cell_id=31)
+    rcell = RefCell(n_prb=25, cell_id=31)
     subframe = 2
     mid = np.zeros(9)
     mid[[0, 8]] = 1.0, 0.6
@@ -78,7 +81,7 @@ def test_chest_matches_reference_and_covers_every_filter_pick():
     grids = _faded_grids(cell, subframe, channels, np.random.default_rng(0))
 
     h, nvar, rsrp = chest.estimate(cell, torch.as_tensor(grids), subframe)
-    h_r, nvar_r, rsrp_r = ref_chest.estimate(cell, jnp.asarray(grids), subframe)
+    h_r, nvar_r, rsrp_r = ref_chest.estimate(rcell, jnp.asarray(grids), subframe)
     _close(h.numpy(), h_r)
     _close(nvar.numpy(), nvar_r)
     _close(rsrp.numpy(), rsrp_r)
@@ -89,7 +92,7 @@ def test_chest_matches_reference_and_covers_every_filter_pick():
     assert set(pick.tolist()) == {0, 3, 5}, pick
 
     m = chest.metrics(cell, torch.as_tensor(grids), nvar, rsrp)
-    m_r = ref_chest.metrics(cell, jnp.asarray(grids), nvar_r, rsrp_r)
+    m_r = ref_chest.metrics(rcell, jnp.asarray(grids), nvar_r, rsrp_r)
     for key, val in m.items():
         np.testing.assert_allclose(val.numpy(), np.asarray(m_r[key]), rtol=1e-4,
                                    atol=1e-4)

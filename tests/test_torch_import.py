@@ -1,12 +1,15 @@
-"""The torch port loads no JAX, builds nothing at import, and never falls
-back to the CPU when CUDA is asked for."""
+"""The torch port loads no JAX and nothing of the JAX package, builds
+nothing at import, runs its entry points on the card unless told
+otherwise, and never falls back to the CPU when CUDA is asked for."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(srsue_tpu_torch.__path__, "srsue_
 for name in names:
     importlib.import_module(name)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+ref = sorted(m for m in sys.modules if m == "srsue_tpu" or m.startswith("srsue_tpu."))
+assert not ref, ref
 assert srsue_tpu_torch.kernels.build.load.cache_info().currsize == 0, "built at import"
 print(len(names))
 """
@@ -39,6 +44,14 @@ def test_every_module_imports_without_jax():
 def test_chip_smoke_imports_no_jax():
     src = (REPO / "chip_smoke.py").read_text()
     assert "jax" not in src.replace("Imports no JAX", "")
+    assert not re.search(r"^\s*(from|import) srsue_tpu\b(?!_torch)", src, re.M)
+
+
+def test_card_tests_import_nothing_of_the_reference():
+    """tests/test_torch_cuda.py runs with --noconftest on a machine without
+    JAX: it imports the port only."""
+    src = (REPO / "tests" / "test_torch_cuda.py").read_text()
+    assert not re.search(r"^\s*(from|import) (jax|srsue_tpu)\b(?!_torch)", src, re.M)
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
@@ -54,9 +67,9 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
 def test_cuda_request_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present")
-    from srsue_tpu.phy.cell import Cell
     from srsue_tpu_torch import entry
     from srsue_tpu_torch.phy import ra
+    from srsue_tpu_torch.phy.cell import Cell
     from srsue_tpu_torch.phy.pdsch import PdschCodec
     from srsue_tpu_torch.utils import device
 
@@ -68,6 +81,33 @@ def test_cuda_request_raises_without_gpu():
         entry.entry("cuda")
     with pytest.raises(ValueError):
         device.resolve("meta")
+
+
+def _default_device_calls():
+    from srsue_tpu_torch import rx
+    from srsue_tpu_torch.phy import pdsch, ra
+    from srsue_tpu_torch.phy.cell import Cell
+    from srsue_tpu_torch.phy.ue_dl import UeDl
+
+    cell, grant = Cell(n_prb=6, cell_id=1), ra.dl_grant(6, 5)
+    bits = np.zeros(21, np.uint8)
+    pay = np.zeros((1, grant.tbs), np.uint8)
+    return {
+        "make_rx": lambda: rx.make_rx(cell, grant, 1, 1, 0x1234, bits, pay, True),
+        "PdschCodec": lambda: pdsch.PdschCodec(cell, grant, 0x1234, 1),
+        "codec": lambda: pdsch.codec(cell, grant, 0x1234, 1),
+        "UeDl": lambda: UeDl(cell),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_rx", "PdschCodec", "codec", "UeDl"])
+def test_entry_point_defaults_to_the_card(name):
+    """Without a device argument an entry point asks for CUDA, and raises
+    on a machine without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _default_device_calls()[name]()
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -13,6 +13,8 @@ softbuffers are also fed to the port's decoder, which must then reproduce
 every output bit for bit, CRC failures included.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +28,14 @@ from srsue_tpu.phy import ofdm as ref_ofdm
 from srsue_tpu.phy import ra as ref_ra
 from srsue_tpu.phy.cell import Cell, DlGrant
 from srsue_tpu.phy.pdsch import PdschCodec as RefCodec
+from srsue_tpu_torch.phy import cell as port_cell
 from srsue_tpu_torch.phy import chest, enb_tx, equalize, ofdm
 from srsue_tpu_torch.phy.pdsch import PdschCodec
+
+
+def _mine(obj):
+    """The port's own Cell or DlGrant with the fields of the reference's."""
+    return getattr(port_cell, type(obj).__name__)(**dataclasses.asdict(obj))
 
 
 def _close(got, ref, rtol, floor):
@@ -61,7 +69,9 @@ def test_slice_matches_reference(name):
     if tbs is not None:  # TBS 500 -> K=528 with 4 filler bits
         grant = DlGrant(grant.n_prb, grant.prb_start, mcs, grant.mod_order, tbs, rv)
     ref = RefCodec(cell, grant, rnti=0x1234, subframe=subframe, cfi=1)
-    mine = PdschCodec(cell, grant, rnti=0x1234, subframe=subframe, cfi=1)
+    pcell = _mine(cell)
+    mine = PdschCodec(pcell, _mine(grant), rnti=0x1234, subframe=subframe, cfi=1,
+                      device="cpu")
     if tbs is not None:
         assert mine.plan.f > 0
     rng = np.random.default_rng(0)
@@ -77,8 +87,8 @@ def test_slice_matches_reference(name):
     out_r = [np.asarray(v) for v in ref.decode_softbuffers(bufs_r)]
 
     # port chain
-    g = ofdm.demodulate(cell, torch.as_tensor(noisy))
-    h, nv, _ = chest.estimate(cell, g, subframe, port=0)
+    g = ofdm.demodulate(pcell, torch.as_tensor(noisy))
+    h, nv, _ = chest.estimate(pcell, g, subframe, port=0)
     x, nve = equalize.zf(mine.extract_re(g), mine.extract_re(h), nv)
     llr = mine.demap_llrs(x, nve)
     bufs = mine.dematch(llr)
@@ -113,12 +123,13 @@ def test_port_transmitter_makes_reference_waveform():
     cell = Cell(n_prb=25, cell_id=301)
     grant = ref_ra.dl_grant(cell.n_prb, 17)
     ref = RefCodec(cell, grant, rnti=0x1234, subframe=0, cfi=1)
-    mine = PdschCodec(cell, grant, rnti=0x1234, subframe=0, cfi=1)
+    pcell = _mine(cell)
+    mine = PdschCodec(pcell, _mine(grant), rnti=0x1234, subframe=0, cfi=1, device="cpu")
     payload = np.random.default_rng(2).integers(0, 2, grant.tbs).astype(np.uint8)
-    for a, b in zip(enb_tx.build_pdsch_subframe(cell, mine, payload),
+    for a, b in zip(enb_tx.build_pdsch_subframe(pcell, mine, payload),
                     ref_tx.build_pdsch_subframe(cell, ref, payload), strict=True):
         np.testing.assert_array_equal(a, b)
-        np.testing.assert_array_equal(enb_tx.to_waveform(cell, [a])[0],
+        np.testing.assert_array_equal(enb_tx.to_waveform(pcell, [a])[0],
                                       ref_tx.to_waveform(cell, [b])[0])
 
 

@@ -5,6 +5,8 @@ same noisy IQ, for each equalizer and turbo form. The reference's
 ``early_exit=False`` is the masked contract; the port's ``forced`` form
 reports 8 iterations for every block and must agree on everything else."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,14 +14,20 @@ import pytest
 import torch
 
 import bench
-from srsue_tpu.phy.cell import Cell
+from srsue_tpu.phy import cell as ref_cell
 from srsue_tpu_torch import rx
+from srsue_tpu_torch.phy.cell import Cell
 
 STATS = ("n_ok", "bit_match", "mean_iters", "n_dci", "cfi_ok")
 
 
+def _ref(obj):
+    """The reference's Cell or DlGrant with the fields of the port's."""
+    return getattr(ref_cell, type(obj).__name__)(**dataclasses.asdict(obj))
+
+
 def _ref_stats(clean, noisy, early_exit, eq):
-    fn = bench.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
+    fn = bench.make_rx(_ref(clean.cell), _ref(clean.grant), clean.subframe, clean.cfi, clean.rnti,
                        clean.dci_bits, clean.payloads, early_exit, eq)
     iq_p = np.stack([noisy.real, noisy.imag], -1).astype(np.float32)
     return dict(zip(STATS, np.asarray(jax.jit(fn)(jnp.asarray(iq_p)))[0, :5].tolist()))
@@ -27,7 +35,8 @@ def _ref_stats(clean, noisy, early_exit, eq):
 
 def _port_stats(clean, noisy, early_exit, eq, forced=False):
     fn = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-                    clean.dci_bits, clean.payloads, early_exit, eq, forced=forced)
+                    clean.dci_bits, clean.payloads, early_exit, eq, forced=forced,
+                    device="cpu")
     return {k: float(v) for k, v in fn(torch.as_tensor(noisy)).items()}
 
 
@@ -74,7 +83,7 @@ def test_control_stage_and_bad_equalizer(small):
     assert cfi.tolist() == [2, 2] and hard.shape == (2, n_cand, n) and ok.shape == (2, n_cand)
     with pytest.raises(ValueError, match="eq must be"):
         rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-                   clean.dci_bits, clean.payloads, True, "lmmse")
+                   clean.dci_bits, clean.payloads, True, "lmmse", device="cpu")
 
 
 def test_build_clean_matches_bench():
@@ -82,7 +91,7 @@ def test_build_clean_matches_bench():
     payloads, waveforms, signal power and generator state as bench.py."""
     mine = rx.build_clean(2)
     ref = bench.build_clean(2)
-    assert mine.cell == ref[0] and mine.grant == ref[1]
+    assert _ref(mine.cell) == ref[0] and _ref(mine.grant) == ref[1]
     assert (mine.subframe, mine.cfi, mine.rnti) == tuple(ref[2:5])
     for a, b in zip((mine.dci_bits, mine.payloads, mine.td), ref[5:8], strict=True):
         np.testing.assert_array_equal(a, b)

@@ -2,16 +2,37 @@
 segmentation, QPP, trellis, turbo encoder, rate-matching maps and the
 PdschCodec tables. All comparisons are exact (integer tables)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
+from srsue_tpu.mac import pdu as ref_pdu
+from srsue_tpu.phy import cell as ref_cell
+from srsue_tpu.phy import crc as ref_crc
 from srsue_tpu.phy import pdsch as ref_pdsch
 from srsue_tpu.phy import ra as ref_ra
 from srsue_tpu.phy import ratematch as ref_rm
+from srsue_tpu.phy import regrid as ref_regrid
 from srsue_tpu.phy import segmentation as ref_seg
+from srsue_tpu.phy import seq as ref_seq
 from srsue_tpu.phy import turbo as ref_turbo
 from srsue_tpu.phy.cell import Cell
-from srsue_tpu_torch.phy import pdsch, ra, ratematch, segmentation, turbo
+from srsue_tpu_torch.mac import pdu
+from srsue_tpu_torch.phy import cell as port_cell
+from srsue_tpu_torch.phy import crc, pdsch, ra, ratematch, regrid, segmentation, seq, turbo
+
+
+def _mine(obj):
+    """The port's own Cell or DlGrant with the fields of the reference's."""
+    return getattr(port_cell, type(obj).__name__)(**dataclasses.asdict(obj))
+
+
+def _same(a, b):
+    """Equal fields in a dataclass of the same name (the port keeps its own
+    copy of the reference's Cell and grants)."""
+    assert type(a).__name__ == type(b).__name__
+    assert dataclasses.astuple(a) == dataclasses.astuple(b)
 
 
 def test_tbs_table_every_cell():
@@ -26,9 +47,9 @@ def test_tbs_table_every_cell():
 def test_dl_grant_fields(n_prb):
     for mcs in range(29):
         for rv in (0, 2):
-            assert ra.dl_grant(n_prb, mcs, rv=rv) == ref_ra.dl_grant(n_prb, mcs, rv=rv)
-    assert ra.dl_grant(n_prb, 10, n_prb_alloc=3, prb_start=2) == \
-        ref_ra.dl_grant(n_prb, 10, n_prb_alloc=3, prb_start=2)
+            _same(ra.dl_grant(n_prb, mcs, rv=rv), ref_ra.dl_grant(n_prb, mcs, rv=rv))
+    _same(ra.dl_grant(n_prb, 10, n_prb_alloc=3, prb_start=2),
+          ref_ra.dl_grant(n_prb, 10, n_prb_alloc=3, prb_start=2))
 
 
 def test_segmentation_plan_across_tbs():
@@ -93,9 +114,10 @@ CODEC_CASES = [
 def test_codec_tables_and_from_arrays(cell, mcs, subframe, rv):
     grant = ref_ra.dl_grant(cell.n_prb, mcs, rv=rv)
     ref = ref_pdsch.PdschCodec(cell, grant, rnti=0x1234, subframe=subframe, cfi=1)
-    mine = pdsch.PdschCodec(cell, grant, rnti=0x1234, subframe=subframe, cfi=1)
+    pcell, pgrant = _mine(cell), _mine(grant)
+    mine = pdsch.PdschCodec(pcell, pgrant, rnti=0x1234, subframe=subframe, cfi=1, device="cpu")
     rt = pdsch.PdschCodec.from_arrays(
-        cell, grant, ref.re_idx, ref.rm_idx, ref.scr_pm1, ref._blk_crc,
+        pcell, pgrant, ref.re_idx, ref.rm_idx, ref.scr_pm1, ref._blk_crc,
         ref._tb_crc, "cpu", subframe=subframe)
     for c in (mine, rt):
         np.testing.assert_array_equal(c.re_idx, ref.re_idx)
@@ -114,3 +136,74 @@ def test_codec_tables_and_from_arrays(cell, mcs, subframe, rv):
         np.testing.assert_array_equal(mine.encode(payload), ref.encode(payload))
         np.testing.assert_array_equal(mine.encode_symbols(payload),
                                       ref.encode_symbols(payload))
+
+
+# ------------------------------------------- the port's copies of host tables
+COPY_CELLS = [Cell(n_prb=6, cell_id=17), Cell(n_prb=15, cell_id=150, n_ports=2),
+              Cell(n_prb=25, cell_id=301), Cell(n_prb=100, cell_id=42),
+              Cell(n_prb=50, cell_id=7, extended_cp=True)]
+
+
+@pytest.mark.parametrize("cell", COPY_CELLS, ids=lambda c: f"{c.n_prb}prb_{c.cell_id}")
+def test_cell_and_regrid_copies_match_reference(cell):
+    mine = _mine(cell)
+    for name in ("nfft", "srate", "n_sc", "n_sym_slot", "n_sym_sf", "cp_lengths", "sf_len",
+                 "slot_len", "n_id_1", "n_id_2", "vshift"):
+        assert getattr(mine, name) == getattr(cell, name), name
+    assert regrid.sync_sc(mine).tolist() == ref_regrid.sync_sc(cell).tolist()
+    assert regrid.pss_symbol(mine) == ref_regrid.pss_symbol(cell)
+    assert regrid.sss_symbol(mine) == ref_regrid.sss_symbol(cell)
+    for cfi in (1, 2, 3):
+        assert regrid.control_span(mine, cfi) == ref_regrid.control_span(cell, cfi)
+    for sf in (0, 1, 5, 6):
+        for port in range(cell.n_ports):
+            assert regrid.crs_symbols(mine, port) == ref_regrid.crs_symbols(cell, port)
+            np.testing.assert_array_equal(regrid.crs_positions(mine, port, sf),
+                                          ref_regrid.crs_positions(cell, port, sf))
+            np.testing.assert_array_equal(regrid.crs_values(mine, port, sf),
+                                          ref_regrid.crs_values(cell, port, sf))
+        for cfi in (1, 3):
+            for start, n in ((0, cell.n_prb), (1, cell.n_prb // 2)):
+                np.testing.assert_array_equal(regrid.pdsch_re(mine, sf, cfi, start, n),
+                                              ref_regrid.pdsch_re(cell, sf, cfi, start, n))
+
+
+def test_grant_and_modulation_constants_match_reference():
+    assert port_cell.NFFT_BY_PRB == ref_cell.NFFT_BY_PRB
+    assert ((port_cell.MOD_BPSK, port_cell.MOD_QPSK, port_cell.MOD_16QAM, port_cell.MOD_64QAM)
+            == (ref_cell.MOD_BPSK, ref_cell.MOD_QPSK, ref_cell.MOD_16QAM, ref_cell.MOD_64QAM))
+    for cls in ("DlGrant", "UlGrant"):
+        fields = [f.name for f in dataclasses.fields(getattr(ref_cell, cls))]
+        assert [f.name for f in dataclasses.fields(getattr(port_cell, cls))] == fields
+        g = getattr(port_cell, cls)(n_prb=4, prb_start=2, mcs=9, mod_order=2, tbs=904, rv=2)
+        _same(g, getattr(ref_cell, cls)(**dataclasses.asdict(g)))
+    with pytest.raises(ValueError):
+        port_cell.Cell(n_prb=7)
+
+
+@pytest.mark.parametrize("kind", ["24A", "24B", "16", "8"])
+def test_crc_copy_matches_reference(kind):
+    rng = np.random.default_rng(len(kind))
+    for n in (1, 16, 40, 500, 6120):
+        bits = rng.integers(0, 2, n).astype(np.uint8)
+        np.testing.assert_array_equal(crc.crc(bits, kind), ref_crc.crc(bits, kind))
+        for mask in (0, 0x1234):
+            np.testing.assert_array_equal(crc.attach(bits, kind, mask),
+                                          ref_crc.attach(bits, kind, mask))
+        np.testing.assert_array_equal(crc.crc_matrix(n, kind), ref_crc.crc_matrix(n, kind))
+
+
+def test_seq_copy_and_bits_to_bytes_match_reference():
+    for c_init in (0, 1, 0x1234 << 14, (1 << 31) - 1, 2 ** 10 * 7 * 85 + 84):
+        for length in (1, 31, 440, 4 * 110, 15000):
+            np.testing.assert_array_equal(seq.prs(c_init, length), ref_seq.prs(c_init, length))
+    for n_id_2 in range(3):
+        np.testing.assert_array_equal(seq.pss_freq(n_id_2), ref_seq.pss_freq(n_id_2))
+        for n_id_1 in (0, 29, 30, 167):
+            for sf5 in (False, True):
+                np.testing.assert_array_equal(seq.sss_freq(n_id_1, n_id_2, sf5),
+                                              ref_seq.sss_freq(n_id_1, n_id_2, sf5))
+    rng = np.random.default_rng(3)
+    for n in (8, 24, 904, 75376):
+        bits = rng.integers(0, 2, n).astype(np.uint8)
+        assert pdu.bits_to_bytes(bits) == ref_pdu.bits_to_bytes(bits)

@@ -13,9 +13,20 @@ from srsue_tpu.phy import control, dci, enb_tx, ra
 from srsue_tpu.phy.cell import Cell
 from srsue_tpu.phy.pdsch import PdschCodec
 from srsue_tpu.phy.ue_dl import UeDl as RefUeDl
+from srsue_tpu_torch.phy import cell as port_cell
 from srsue_tpu_torch.phy.ue_dl import UeDl
 
 SI_RNTI = 0xFFFF
+
+
+def _mine(obj):
+    """The port's own Cell or DlGrant with the fields of the reference's."""
+    return getattr(port_cell, type(obj).__name__)(**dataclasses.asdict(obj))
+
+
+def _port_ue(cell):
+    """The port's UeDl on the CPU for the reference's cell."""
+    return UeDl(_mine(cell), device="cpu")
 
 
 def _waveforms(cell, sf, cfi, dcis, pdsch, snr_db, seed, batch=1):
@@ -69,14 +80,14 @@ def test_process_matches_reference():
                   tpc=0)
     iq, (pays,) = _waveforms(cell, sf, cfi, [(dci.pack_1a(25, d), rnti, 0, 4)],
                              [(grant, rnti)], 20.0, 0)
-    got = UeDl(cell).process(iq, sf, rnti)
+    got = _port_ue(cell).process(iq, sf, rnti)
     _assert_same(got, RefUeDl(cell).process(iq, sf, rnti))
     assert got.cfi == cfi and len(got.grants) == 1 and got.grants[0].tbs == grant.tbs
     assert got.tb_ok.all()
     np.testing.assert_array_equal(got.payload, pays)
     assert "snr_db" in got.metrics
 
-    none = UeDl(cell).process(iq, sf, rnti ^ 0x0F0F)  # a wrong RNTI: no grant
+    none = _port_ue(cell).process(iq, sf, rnti ^ 0x0F0F)  # a wrong RNTI: no grant
     assert none.cfi == cfi and none.grants == [] and none.payload is None
 
 
@@ -96,7 +107,7 @@ def test_process_formats_match_reference():
     iq, (pays,) = _waveforms(cell, sf, cfi, [(dci.pack_1(25, d1), crnti, start, l_aggr)],
                              [(grant, crnti)], 20.0, 2, batch=2)
     formats = ("0_1a", "1", "1c")
-    got = UeDl(cell).process(iq, sf, crnti, formats=formats)
+    got = _port_ue(cell).process(iq, sf, crnti, formats=formats)
     _assert_same(got, RefUeDl(cell).process(iq, sf, crnti, formats=formats))
     assert [f for f, _ in got.hits_per_elem[1]] == ["1"] and got.tb_ok.all()
     np.testing.assert_array_equal(got.payload, pays)
@@ -107,7 +118,7 @@ def test_process_formats_match_reference():
     grant = dci.dci1c_to_grant(cell, d1c)
     iq, (pays,) = _waveforms(cell, sf, cfi, [(dci.pack_1c(25, d1c), SI_RNTI, 0, 4)],
                              [(grant, SI_RNTI)], 20.0, 4)
-    got = UeDl(cell).process(iq, sf, SI_RNTI, ue_specific=False, formats=("0_1a", "1c"))
+    got = _port_ue(cell).process(iq, sf, SI_RNTI, ue_specific=False, formats=("0_1a", "1c"))
     _assert_same(got, RefUeDl(cell).process(iq, sf, SI_RNTI, ue_specific=False,
                                             formats=("0_1a", "1c")))
     assert got.grants[0].tbs == grant.tbs and got.tb_ok.all()
@@ -118,10 +129,10 @@ def test_decode_pdsch_and_two_ports():
     cell = Cell(n_prb=6, cell_id=17)
     grant = ra.dl_grant(cell.n_prb, 5)
     iq, (pays,) = _waveforms(cell, 1, 1, [], [(grant, 0x1234)], 20.0, 1, batch=2)
-    got = UeDl(cell).decode_pdsch(iq, grant, 0x1234, 1, 1)
+    got = _port_ue(cell).decode_pdsch(iq, _mine(grant), 0x1234, 1, 1)
     ref = RefUeDl(cell).decode_pdsch(iq, grant, 0x1234, 1, 1)
     for x, y in zip(got, ref, strict=True):
         np.testing.assert_array_equal(x, np.asarray(y))
     np.testing.assert_array_equal(got[0], pays)
     with pytest.raises(NotImplementedError, match="Slice C item 15"):
-        UeDl(Cell(n_prb=15, cell_id=150, n_ports=2))
+        UeDl(_mine(Cell(n_prb=15, cell_id=150, n_ports=2)), device="cpu")
