@@ -7,7 +7,8 @@ Phases, each of which fails the run:
   1. environment: card, power limit, torch/CUDA versions; builds the CUDA
      kernels from srsue_tpu_torch/csrc/ (nvcc, sm_90a) into build/kernels/
      and prints ptxas's registers and spills and every kernel's resident
-     warps per SM (the CUDA occupancy calculator);
+     warps per SM (the CUDA occupancy calculator); the radix-4 instances
+     must not spill and must hold at least 12 warps per SM;
   2. the BCJR half-iteration kernel against its plain PyTorch twin at the
      shapes the main path gives it (and K=6144, lw=104 and a window of 36,
      whose last checkpoint segment is short), with random window
@@ -30,8 +31,9 @@ Phases, each of which fails the run:
   8. the circular Viterbi kernel (csrc/viterbi.cu) against its plain twin
      (phy/convcode.py::decode_plain) at the blind search's shapes (B=4,608
      hypotheses of n=44 and 54, 1,536 of 31, PBCH's 4 of 40, an odd n=33):
-     equal hard bits on noisy codewords at 0/3/10 dB and random LLRs, the
-     sent bits at 10 dB; both timed;
+     equal hard bits on noisy codewords at 0/3/10 dB, random LLRs and the
+     tie inputs (all zero, one constant per hypothesis), the sent bits at
+     10 dB; both timed;
   9. the blind control + data chain (rx.make_rx, bench.py's make_rx) at
      B=256, 26 dB, with ZF, MMSE and scalar-noise ZF (early exit) and ZF
      forced: every CFI, DCI and TB found, bit-exact, one Viterbi launch per
@@ -42,18 +44,21 @@ Phases, each of which fails the run:
      (TBS 75376), every payload bit-exact; a wrong RNTI gets no grant; DL
      HARQ: rv0 alone fails, rv0 + rv2 soft-combined passes and delivers.
 
-Prints the kernels' JSON record (time, plain twin's time, launches on the
-path, warps per SM, and the least time the card could take for the same
-work: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the H100
-SXM's published peaks, whichever is larger), the nvidia-smi
-name/power-limit line and, last, {"ok": true, "device": ...}. Exits non-zero with no result when CUDA
-is unavailable or a phase fails. Imports no JAX.
+Prints the kernels' JSON record (time between CUDA events around repeated
+calls, the kernel's own device time by torch.profiler, plain twin's time,
+launches on the path, warps per SM, and the least time the card could take
+for the same work: bytes over 3.35 TB/s or float32 operations over 67
+TFLOP/s, the H100 SXM's published peaks, whichever is larger), the
+nvidia-smi name/power-limit line and, last, {"ok": true, "device": ...}.
+Exits non-zero with no result when CUDA is unavailable or a phase fails.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +127,36 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> dict:
+    """{device_ms: the kernel's own mean time per launch, one per call of fn,
+    device_ms_by: how it was timed} (bench_kernel_variants.device_ms:
+    torch.profiler, or CUDA events behind a spin kernel where no trace held
+    the launches; `kernel` names its instance)."""
+    from srsue_tpu_torch import bench_kernel_variants
+
+    ms, by = bench_kernel_variants.device_ms(fn, reps, kernel)
+    if by != "profiler":
+        print(f"chip_smoke: device time of {kernel} by {by}", flush=True)
+    return {"device_ms": ms, "device_ms_by": by}
+
+
+def ptxas_usage(log: str) -> dict:
+    """{mangled kernel name: (registers, spill bytes stored + loaded)} from
+    nvcc's -Xptxas -v output."""
+    usage, cur, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            usage[cur] = (int(m.group(1)), spill)
+    return usage
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -194,6 +229,8 @@ def phase_kernel(torch, bcjr, dev):
         b = half_bound(n, lw, R2_OPS_PER_STEP)
         rows.append({"shape": label, "windows": n, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, **b})
+        if label.startswith("flagship K=5824 lw=64"):
+            rows[-1].update(device_ms(lambda: bcjr.half_windowed(*core), 50, "r2max"))
         print(f"phase 2: {label} B={blocks} windows={n}: max|diff| {err:.3g} "
               f"(rtol {RTOL:g}, atol {ATOL:g}); kernel "
               f"{ms:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_by']}), plain "
@@ -321,7 +358,8 @@ def phase_new_kernels(torch, bcjr, turbo, dev):
                   f"{ms:.4f} ms (bound {b['bound_ms']:.4f}, {b['bound_by']}), plain "
                   f"{plain_ms:.4f} ms", flush=True)
             if label.startswith("flagship K=5824 lw=64"):
-                out[kernel] = {"ms": ms, "plain_ms": plain_ms, **b}
+                out[kernel] = {"ms": ms, "plain_ms": plain_ms, **b, **device_ms(
+                    lambda: bcjr.half_windowed(*core, kernel), 50, kernel)}
         out[kernel]["max_abs_err"] = max(errs)
     errs = []
     for label, k, lw, blocks in KERNEL_SHAPES:
@@ -345,7 +383,8 @@ def phase_new_kernels(torch, bcjr, turbo, dev):
               f"plain {plain_ms:.4f} ms; r2max half with torch glue {unfused_ms:.4f} ms",
               flush=True)
         if label.startswith("flagship K=5824 lw=64"):
-            out["fused"] = {"ms": ms, "plain_ms": plain_ms, **b}
+            out["fused"] = {"ms": ms, "plain_ms": plain_ms, **b, **device_ms(
+                lambda: bcjr.bcjr_half_fused(*fused), 50, "fused")}
     out["fused"]["max_abs_err"] = max(errs)
     return out
 
@@ -386,13 +425,22 @@ def phase_variant_chains(torch, entry, bcjr, dev, iq, want):
     return launches
 
 
-def viterbi_inputs(np, convcode, batch, n, snr_db, seed):
+def viterbi_inputs(np, convcode, batch, n, kind, seed):
     """(llrs [batch, n, 3] float32, bits [batch, n]): noisy codewords of
-    random bits at `snr_db` per coded bit, or random LLRs when it is None."""
+    random bits at `kind` dB per coded bit, or random LLRs, all-zero LLRs,
+    or one constant LLR per hypothesis (a multiple of 1/4, so that every
+    sum is exact and path metrics tie everywhere)."""
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, (batch, n)).astype(np.uint8)
-    if snr_db is None:
+    if kind == "random":
         return (rng.standard_normal((batch, n, 3)) * 4.0).astype(np.float32), bits
+    if kind == "zeros":
+        return np.zeros((batch, n, 3), np.float32), bits
+    if kind == "constant":
+        c = np.round(rng.uniform(-4.0, 4.0, batch) * 4.0) / 4.0
+        return np.ascontiguousarray(np.broadcast_to(c[:, None, None], (batch, n, 3)),
+                                    dtype=np.float32), bits
+    snr_db = kind
     x = 1.0 - 2.0 * np.swapaxes(convcode.encode(bits), -1, -2)
     var = 10.0 ** (-snr_db / 10.0)
     y = x + np.sqrt(var) * rng.standard_normal(x.shape)
@@ -401,12 +449,13 @@ def viterbi_inputs(np, convcode, batch, n, snr_db, seed):
 
 def phase_viterbi(torch, np, viterbi, convcode, dev):
     """The Viterbi kernel against decode_plain at the path's shapes: equal
-    hard bits (exact), and the transmitted bits at 10 dB; both timed at
-    every shape. Returns the flagship row (B=4,608, n=44) with the largest
-    bit difference over every shape and input."""
+    hard bits (exact) on noisy codewords, random LLRs and tie inputs (all
+    zero, constant), and the transmitted bits at 10 dB; both timed at every
+    shape. Returns the flagship row (B=4,608, n=44) with the largest bit
+    difference over every shape and input."""
     row, err = None, 0
     for label, batch, n in VITERBI_SHAPES:
-        for j, snr in enumerate((0.0, 3.0, 10.0, None)):
+        for j, snr in enumerate((0.0, 3.0, 10.0, "zeros", "constant", "random")):
             llr_np, bits = viterbi_inputs(np, convcode, batch, n, snr, 1000 * n + j)
             llr = torch.as_tensor(llr_np, device=dev)
             before = viterbi.launches
@@ -421,11 +470,13 @@ def phase_viterbi(torch, np, viterbi, convcode, dev):
                       f"viterbi {label} at 10 dB: decoded bits differ from the sent ones")
         ms = cuda_ms(torch, lambda: convcode.decode(llr), reps=50)
         plain_ms = cuda_ms(torch, lambda: convcode.decode_plain(llr), reps=3)
+        timing = device_ms(lambda: convcode.decode(llr), 50, "viterbi")
         print(f"phase 8: viterbi {label} B={batch} n={n}: kernel = decode_plain bit for bit "
-              f"at 0/3/10 dB and random LLRs, 10 dB = sent bits; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
+              f"at 0/3/10 dB, all-zero, constant and random LLRs, 10 dB = sent bits; kernel "
+              f"{ms:.4f} ms (device {timing['device_ms']:.4f}), plain {plain_ms:.4f} ms",
+              flush=True)
         if row is None:  # llr [B, n, 3] float32 in, [B, n] bytes out; 64 states, 2n steps
-            row = {"ms": ms, "plain_ms": plain_ms,
+            row = {"ms": ms, **timing, "plain_ms": plain_ms,
                    **bound(batch * n * 13, VITERBI_OPS_PER_STATE_STEP * 64 * 2 * n * batch)}
     return {"max_abs_err": float(err), **row}
 
@@ -599,6 +650,16 @@ def main() -> int:
     warps = {name: build.warps_per_sm(name, 64) for name in build.HALF_KERNELS}
     warps["fused"] = build.warps_per_sm("fused", BATCH * 13, 5824, 64)
     warps["viterbi"] = build.warps_per_sm("viterbi", 44)
+    usage = ptxas_usage(lib.log)
+    for name, inst in (("v4", "F32"), ("v5", "BF2")):
+        regs = [u for k, u in usage.items() if "bcjr_half_r4_kernel" in k and inst in k]
+        check(len(regs) == 1 or not lib.log, f"ptxas output lists {len(regs)} {name} kernels")
+        if regs:
+            check(regs[0][1] == 0, f"radix-4 {name} spills {regs[0][1]} B")
+        check(warps[name] >= 12, f"radix-4 {name}: {warps[name]} warps/SM at lw=64")
+        print(f"phase 1: radix-4 {name}: " + (f"{regs[0][0]} registers, {regs[0][1]} B "
+              f"spilled, " if regs else "library reused, ") + f"{warps[name]} warps/SM at "
+              f"lw=64", flush=True)
     print("phase 1: warps per SM at lw=64: " + ", ".join(
         f"{k} {v}" for k, v in warps.items()) + "; at lw=104: " + ", ".join(
         f"{k} {build.warps_per_sm(k, 104)}" for k in build.HALF_KERNELS) +
@@ -631,7 +692,9 @@ def main() -> int:
         "replaces": f"{TURBO}:372",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": flag["ms"], "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+        "ms": flag["ms"], "device_ms": flag["device_ms"],
+        "device_ms_by": flag["device_ms_by"], "plain_ms": flag["plain_ms"],
+        "bound_ms": flag["bound_ms"],
         "bound_by": flag["bound_by"], "warps_per_sm": warps["r2max"]}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,

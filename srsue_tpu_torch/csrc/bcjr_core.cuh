@@ -2,13 +2,13 @@
 // bcjr_half_fused.cu): the RSC trellis as compile-time functions, the
 // checkpointed radix-2 window recursion, and launch sizing.
 //
-// The radix-2 kernels (bcjr_half.cu, bcjr_half_fused.cu) run one window per
-// thread with its 8 state metrics in registers. The forward pass stores
+// Every kernel runs one window per thread (two for the bf16x2 radix-4
+// instance) with its 8 state metrics in registers. The forward pass stores
 // alpha in shared memory only at every C-th step, [segment][state][thread]
 // so that a warp's accesses hit 32 banks; the backward pass recomputes one
 // segment's alphas at a time into registers from its checkpoint. The
-// radix-4 kernels (bcjr_half_r4.cu) keep their whole even-step alpha
-// history in shared memory and size their blocks with launch_config.
+// radix-2 window is r2_window below; the radix-4 one (bcjr_half_r4.cu)
+// follows the same pattern with segments of 4 double steps.
 
 #pragma once
 
@@ -287,33 +287,24 @@ int allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-// Threads per block, blocks and dynamic shared memory for a kernel whose
-// threads each need `per_thread` bytes of shared memory, `threads` threads
-// in all; sets the kernel's shared-memory limit. Returns a CUDA error code.
-// (The radix-4 kernels: their shared memory sets their occupancy.)
+// Threads per block and dynamic shared memory of a checkpointed kernel
+// whose threads each keep `per_thread` bytes of checkpoints: max_threads,
+// fewer (a multiple of 32 where it can be) when their checkpoints do not
+// fit; sets the kernel's shared-memory limit. Returns a CUDA error code.
 template <typename Kernel>
-int launch_config(Kernel kernel, long long per_thread, long long threads, unsigned* tpb_out,
-                  unsigned* blocks_out, size_t* smem_out) {
-  if (threads <= 0 || per_thread <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
+int ckpt_config(Kernel kernel, long long per_thread, int max_threads, int* tpb, size_t* smem) {
+  int dev = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int smem_max = 0;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long tpb = smem_max / per_thread;
-  if (tpb > 128) tpb = 128;
-  if (tpb < 1) return static_cast<int>(cudaErrorInvalidValue);  // window too long
-  const long long blocks = (threads + tpb - 1) / tpb;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(tpb * per_thread);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *tpb_out = static_cast<unsigned>(tpb);
-  *blocks_out = static_cast<unsigned>(blocks);
-  *smem_out = smem;
-  return 0;
+  long long t = smem_max / per_thread;
+  if (t > max_threads) t = max_threads;
+  if (t > 32) t -= t % 32;
+  if (t < 1) return static_cast<int>(cudaErrorInvalidValue);  // window too long
+  *tpb = static_cast<int>(t);
+  *smem = static_cast<size_t>(t * per_thread);
+  return allow_smem(kernel, *smem);
 }
 
 }  // namespace bcjr

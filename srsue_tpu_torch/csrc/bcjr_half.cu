@@ -120,19 +120,8 @@ int config(int lw, int* tpb, size_t* smem) {
   if (lw <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (N == Norm::kState0 && lw % bcjr::kNormEvery != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per = bcjr::ckpt_bytes<kSeg>(lw);
-  long long t = smem_max / per;
-  if (t > kThreads) t = kThreads;
-  if (t > 32) t -= t % 32;
-  if (t < 1) return static_cast<int>(cudaErrorInvalidValue);  // window too long
-  *tpb = static_cast<int>(t);
-  *smem = static_cast<size_t>(t * per);
-  return bcjr::allow_smem(bcjr_half_kernel<N>, *smem);
+  return bcjr::ckpt_config(bcjr_half_kernel<N>, bcjr::ckpt_bytes<kSeg>(lw), kThreads, tpb,
+                           smem);
 }
 
 template <Norm N>

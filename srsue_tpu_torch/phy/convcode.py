@@ -7,12 +7,14 @@ MSB; the 7-bit word w = x_k*64 + s indexes branches; next state = w >> 1.
 LLR sign: positive = bit 0 (as ``modulation.demodulate_soft``).
 
 The decoder runs the trellis twice over the sequence (the wrap-around
-pass warms the tail-biting state) with register-exchange survivors: each
-state carries its decoded input bits packed into 32-bit words, and the
-result is read from the best state's words after the second pass. On CUDA
-it is one launch of the hand-written kernel ``csrc/viterbi.cu``
-(``kernels/viterbi.py``); ``decode_plain`` is its twin in torch ops, with
-the same float32 operations in the same order, so both give the same bits.
+pass warms the tail-biting state). ``decode_plain`` keeps register-exchange
+survivors: each state carries its decoded input bits packed into 32-bit
+words, and the result is read from the best state's words after the second
+pass. On CUDA it is one launch of the hand-written kernel
+``csrc/viterbi.cu`` (``kernels/viterbi.py``), which keeps the second pass's
+decisions instead and traces the best state's path back through them: the
+same path, from the same float32 operations in the same order, so both
+give the same bits.
 """
 
 from __future__ import annotations

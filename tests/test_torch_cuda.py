@@ -76,15 +76,28 @@ def _assert_matches(got, ref, kernel):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
 
 
+# K = 40 as one window of 5 radix-4 segments of 8 steps, lw = 8 as one
+# segment; 567, 65, 7, 185 and 2,112 windows leave the last block of 128
+# threads part-full, and the odd counts leave v5's last thread one window
 @pytest.mark.parametrize("kernel", ["v2v3", "v4", "v5"])
 @pytest.mark.parametrize("k,lw,blocks", [(512, 64, 64), (432, 48, 63), (256, 256, 65),
-                                         (6144, 64, 5), (5824, 104, 6)])
+                                         (6144, 64, 5), (5824, 104, 6), (40, 40, 7),
+                                         (64, 8, 3), (40, 8, 37), (512, 8, 33)])
 def test_instance_matches_plain(cuda_device, kernel, k, lw, blocks):
     args = _half_args(k, lw, blocks, cuda_device, k)
     before = dict(bcjr.launches)
     got = bcjr.bcjr_half_windowed(*args, kernel=kernel)
     assert bcjr.launches == {n: c + (n == kernel) for n, c in before.items()}
     _assert_matches(got, bcjr.bcjr_half_windowed_plain(*args, kernel=kernel), kernel)
+
+
+def test_radix4_occupancy(cuda_device):
+    """Registers, not shared memory, set the radix-4 kernels' residency at
+    the flagship window (lw = 64): at least 12 warps per SM, from 4."""
+    from srsue_tpu_torch.kernels import build
+
+    assert build.warps_per_sm("v4", 64) >= 12
+    assert build.warps_per_sm("v5", 64) >= 12
 
 
 def _fused_case(device, k, lw, blocks, which):
@@ -194,24 +207,34 @@ def test_chain_on_card_matches_cpu(cuda_device, n_prb, mcs):
     np.testing.assert_array_equal(gpu[0].numpy(), payloads)
 
 
-def _viterbi_llrs(batch, n, snr_db, seed):
+def _viterbi_llrs(batch, n, kind, seed):
+    """Noisy codewords at `kind` dB, or the tie inputs: all-zero LLRs, or
+    one constant per hypothesis (a multiple of 1/4, so every sum is exact
+    and path metrics tie everywhere)."""
     from srsue_tpu_torch.phy import convcode
 
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, (batch, n)).astype(np.uint8)
+    if kind == "zeros":
+        return np.zeros((batch, n, 3), np.float32), bits
+    if kind == "constant":
+        c = np.round(rng.uniform(-4.0, 4.0, batch) * 4.0) / 4.0
+        return np.broadcast_to(c[:, None, None], (batch, n, 3)).astype(np.float32), bits
+    snr_db = kind
     x = 1.0 - 2.0 * np.swapaxes(convcode.encode(bits), -1, -2)
     var = 10.0 ** (-snr_db / 10.0)
     y = x + np.sqrt(var) * rng.standard_normal(x.shape)
     return np.ascontiguousarray(2.0 * y / var, dtype=np.float32), bits
 
 
-@pytest.mark.parametrize("batch,n", [(4608, 44), (300, 54), (1536, 31), (4, 40), (33, 33),
-                                     (9, 96), (5, 1)])
+# B = 1003, 33, 9 and 5 leave the last block of 8 hypotheses part-full
+@pytest.mark.parametrize("batch,n", [(4608, 44), (1003, 44), (300, 54), (1536, 31), (4, 40),
+                                     (33, 33), (9, 96), (5, 1)])
 def test_viterbi_kernel_matches_plain(cuda_device, batch, n):
     from srsue_tpu_torch.kernels import viterbi
     from srsue_tpu_torch.phy import convcode
 
-    for snr in (0.0, 10.0):
+    for snr in (0.0, 10.0, "zeros", "constant"):  # ties: the twin's tie rules hold
         llr_np, bits = _viterbi_llrs(batch, n, snr, n)
         llr = torch.as_tensor(llr_np, device=cuda_device)
         before = viterbi.launches
@@ -236,6 +259,21 @@ def test_viterbi_wrapper_rejects_bad_input(cuda_device):
     before = viterbi.launches
     assert convcode.decode(torch.zeros(0, 40, 3, device=cuda_device)).shape == (0, 40)
     assert viterbi.launches == before
+
+
+def test_device_timings_agree(cuda_device):
+    """bench_kernel_variants' two device timings of the Viterbi at the blind
+    search's shape: the profiler's kernel time and the per-call time of
+    CUDA events behind a spin kernel, which also holds the card's gap
+    between launches. The events' time is 0.9-1.25 x the profiler's."""
+    from srsue_tpu_torch import bench_kernel_variants as bkv
+    from srsue_tpu_torch.phy import convcode
+
+    llr = bkv.viterbi_llrs(4608, 44, cuda_device)
+    prof_ms, by = bkv.device_ms(lambda: convcode.decode(llr), 50, "viterbi")
+    assert by == "profiler"
+    gated = bkv.gated_ms(lambda: convcode.decode(llr), 50)
+    assert 0.9 * prof_ms <= gated <= 1.25 * prof_ms, (gated, prof_ms)
 
 
 @pytest.mark.parametrize("eq,forced", [("zf", False), ("mmse", False), ("zf_scalar", True)])
