@@ -11,8 +11,9 @@ Phases, each of which fails the run:
      must not spill and must hold at least 12 warps per SM;
   2. the BCJR half-iteration kernel against its plain PyTorch twin at the
      shapes the main path gives it (and K=6144, lw=104 and a window of 36,
-     whose last checkpoint segment is short), with random window
-     boundaries; times both with CUDA events;
+     whose last checkpoint segment is short, and the cold-start paths' B=1
+     shapes: 1 block of K=5760 and 4 of K=4992, under one wave), with
+     random window boundaries; times both with CUDA events;
   3. the main path, entry(): 20 MHz MCS 28 (TBS 75376, 13 blocks of
      K=5824), B=256 subframes at 26 dB, CRC early exit and all 8
      iterations masked (converged blocks frozen); every TB passes its CRC
@@ -30,7 +31,8 @@ Phases, each of which fails the run:
   7. the kernel microbenchmark (srsue_tpu_torch/bench_kernel_variants.py);
   8. the circular Viterbi kernel (csrc/viterbi.cu) against its plain twin
      (phy/convcode.py::decode_plain) at the blind search's shapes (B=4,608
-     hypotheses of n=44 and 54, 1,536 of 31, PBCH's 4 of 40, an odd n=33):
+     hypotheses of n=44 and 54, 1,536 of 31, PBCH's 4 of 40, an odd n=33,
+     and the cold-start paths' B=1 searches: 6 and 18 candidates of n=44):
      equal hard bits on noisy codewords at 0/3/10 dB, random LLRs and the
      tie inputs (all zero, one constant per hypothesis), the sent bits at
      10 dB; both timed;
@@ -42,7 +44,24 @@ Phases, each of which fails the run:
      control region finds no DCI;
  10. the UE DL facade (UeDl.process) on those subframes: CFI, the one grant
      (TBS 75376), every payload bit-exact; a wrong RNTI gets no grant; DL
-     HARQ: rv0 alone fails, rv0 + rv2 soft-combined passes and delivers.
+     HARQ: rv0 alone fails, rv0 + rv2 soft-combined passes and delivers;
+ 11. cold start at full width: 4 frames of a 20 MHz 1-port cell at 30.72
+     Msps from rx.build_cell_stream behind 1234 zero samples, with a CFO of
+     0.22 subcarriers at 14 dB; Receiver(ArrayRadio) on the card finds the
+     cell, decodes the MIB (one Viterbi launch at B=4, n=40) and yields
+     aligned subframes; UeDl.process finds the SI-RNTI grant and decodes the
+     SIB bytes, with the kernels at the shapes phases 2 and 8 held against
+     the twins; the same search and MIB on the CPU give the same decisions;
+     ms for the search, the MIB, a steady-state subframe, decimate and
+     pss_correlate;
+ 12. the same on a 2-port cell: the PBCH is found by the Alamouti hypothesis
+     (port 0 sent 8 dB under port 1, so the single-port hypothesis fails: 2
+     Viterbi launches), UeDl.process reads CFI and DCI through the SFBC
+     control region and decodes a C-RNTI TB bit-exactly; a noise-only stream
+     finds no cell and stream() ends;
+ 13. TM2 at the flagship (rx.build_tm2, rx.make_tm2_rx: 100 PRB, 2 ports,
+     MCS 28, B=256, 26 dB), early exit and forced 8: 256/256 TBs bit-exact;
+     ms/batch and Mbps beside the SISO forced chain's.
 
 Prints the kernels' JSON record (time between CUDA events around repeated
 calls, the kernel's own device time by torch.profiler, plain twin's time,
@@ -201,10 +220,11 @@ def half_args(torch, dev, k, lw, blocks):
             rnd(blocks, w, 8, scale=5.0), lw)
 
 
-def phase_kernel(torch, bcjr, dev):
-    """Kernel vs plain twin at the main path's shapes."""
+def phase_kernel(torch, bcjr, dev, cold):
+    """Kernel vs plain twin at the main paths' shapes; `cold` holds the
+    cold-start paths' (B=1: grids far under one wave)."""
     rows = []
-    for label, k, lw, blocks in R2MAX_SHAPES:
+    for label, k, lw, blocks in R2MAX_SHAPES + cold:
         w = k // lw
         args = half_args(torch, dev, k, lw, blocks)
         got = bcjr.bcjr_half_windowed(*args)
@@ -391,8 +411,9 @@ def phase_new_kernels(torch, bcjr, turbo, dev):
 
 def phase_variant_chains(torch, entry, bcjr, dev, iq, want):
     """entry()'s chain with each other kernel instance (CRC early exit) and
-    in the forced form (the fused half); returns each instance's launches."""
-    launches = {}
+    in the forced form (the fused half); returns each instance's launches
+    and its chain's ms/batch."""
+    launches, chain_ms = {}, {}
     groups = None
     for name, kw in (("v2v3", {"kernel": "v2v3"}), ("v4", {"kernel": "v4"}),
                      ("v5", {"kernel": "v5"}), ("fused", {"forced": True})):
@@ -415,14 +436,14 @@ def phase_variant_chains(torch, entry, bcjr, dev, iq, want):
         check(counts == {n: expect if n == name else 0 for n in counts},
               f"{name}: launches {counts}, expected {expect} of {name} only")
         launches[name] = counts[name]
-        t = cuda_ms(torch, lambda: fn(iq), reps=5)
+        t = chain_ms[name] = cuda_ms(torch, lambda: fn(iq), reps=5)
         t_turbo = cuda_ms(torch, lambda: turbo_stage(groups), reps=5)
         form = "forced 8" if codec.forced else "early exit"
         print(f"phase 6: {name} {form}: all {BATCH} TBs pass, bit-exact, launches {counts}, "
               f"mean iters/block {float(iters.float().mean()):.3f}; {t:.3f} ms/batch = "
               f"{int(ok.sum()) * codec.grant.tbs / t / 1e3:.1f} Mbps decoded; turbo stage "
               f"{t_turbo:.3f} ms", flush=True)
-    return launches
+    return launches, chain_ms
 
 
 def viterbi_inputs(np, convcode, batch, n, kind, seed):
@@ -447,14 +468,15 @@ def viterbi_inputs(np, convcode, batch, n, kind, seed):
     return np.ascontiguousarray(2.0 * y / var, dtype=np.float32), bits
 
 
-def phase_viterbi(torch, np, viterbi, convcode, dev):
-    """The Viterbi kernel against decode_plain at the path's shapes: equal
+def phase_viterbi(torch, np, viterbi, convcode, dev, cold):
+    """The Viterbi kernel against decode_plain at the paths' shapes (`cold`:
+    the cold-start paths' B=1 blind searches, a partly filled CTA): equal
     hard bits (exact) on noisy codewords, random LLRs and tie inputs (all
     zero, constant), and the transmitted bits at 10 dB; both timed at every
     shape. Returns the flagship row (B=4,608, n=44) with the largest bit
     difference over every shape and input."""
     row, err = None, 0
-    for label, batch, n in VITERBI_SHAPES:
+    for label, batch, n in VITERBI_SHAPES + cold:
         for j, snr in enumerate((0.0, 3.0, 10.0, "zeros", "constant", "random")):
             llr_np, bits = viterbi_inputs(np, convcode, batch, n, snr, 1000 * n + j)
             llr = torch.as_tensor(llr_np, device=dev)
@@ -616,6 +638,264 @@ def phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterb
           f"{len(got[0])} payload bytes delivered exact", flush=True)
 
 
+COLD_SNR_DB = 14.0
+COLD_LEAD, COLD_CFO = 1234, 0.22
+COLD_FRAMES, COLD_SFN0 = 4, 6
+CRNTI, COLD_MCS = 0x4601, 12
+# phase 12's cell: port 0 8 dB under port 1, so that the single-port PBCH
+# hypothesis fails and the Alamouti hypothesis has to find the MIB (with
+# this seed: at 8 dB some noise draws still let the single port through)
+PORT_GAINS = (0.4, 1.0)
+COLD_SEED = {1: 11, 2: 13}
+
+
+def cold_shapes(rx, n_ports: int):
+    """The shapes at which the cold-start path's one processed subframe
+    (B=1) launches the kernels, from the stream's own settings: ((label, K,
+    lw, blocks) of its r2max halves, (label, candidates, n) of its blind
+    search's Viterbi call). Phases 2 and 8 hold the kernels against their
+    twins at these shapes, and the cold-start phase checks that they are the
+    ones it ran."""
+    from srsue_tpu_torch.mac.rnti import SI_RNTI
+    from srsue_tpu_torch.phy import control, dci, ra, segmentation, turbo
+    from srsue_tpu_torch.phy.cell import Cell
+
+    cell = Cell(n_prb=100, n_ports=n_ports)
+    rnti, sf, mcs, ue_specific, what = ((SI_RNTI, 5, rx.SI_MCS, False, "SIB") if n_ports == 1
+                                        else (CRNTI, rx.DATA_SF, COLD_MCS, True, "C-RNTI TB"))
+    plan = segmentation.plan(ra.dl_grant(cell.n_prb, mcs).tbs)
+    check(plan.c_minus == 0, f"cold start: the {what} has blocks of two sizes")
+    k = plan.k_plus
+    lw = turbo.pick_window(k) or k
+    n_cce, _ = control.pdcch_geometry(cell, 2)
+    n_cand = len(control.search_space_candidates(n_cce, rnti, sf, ue_specific))
+    n = dci.size_0_1a(cell.n_prb) + 16
+    return ((f"cold start, {what} K={k} lw={lw}", k, lw, plan.c),
+            (f"cold start, blind search for the {what}", n_cand, n))
+
+
+def wall_readings(torch, fn, reps: int = 3) -> list:
+    """Host wall ms of each of `reps` calls of fn, each ended by a device
+    synchronise."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def wall_ms(torch, fn, reps: int = 3) -> float:
+    """The least of wall_readings."""
+    return min(wall_readings(torch, fn, reps))
+
+
+def phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports: int, phase: int, shapes):
+    """Raw IQ of a 20 MHz cell -> cell search -> MIB -> aligned subframes ->
+    UeDl.process, on the card; the search and the MIB again on the CPU.
+    1 port: the SIB on the SI-RNTI. 2 ports: a C-RNTI TB through the SFBC
+    control region and Alamouti. `shapes` is cold_shapes(rx, n_ports), held
+    against the twins in phases 2 and 8. Returns the path's launches."""
+    from srsue_tpu_torch.mac.rnti import SI_RNTI
+    from srsue_tpu_torch.phy import control, segmentation, sync
+    from srsue_tpu_torch.phy.cell import Cell
+    from srsue_tpu_torch.phy.receiver import Receiver
+    from srsue_tpu_torch.phy.ue_dl import UeDl
+    from srsue_tpu_torch.radio import ArrayRadio
+
+    tag = f"phase {phase}"
+    cell = Cell(n_prb=100, cell_id=301 if n_ports == 1 else 150, n_ports=n_ports)
+    sib = np.random.default_rng(phase).bytes(96) if n_ports == 1 else None
+    t0 = time.perf_counter()
+    stream = rx.build_cell_stream(cell, COLD_FRAMES, sib=sib, snr_db=COLD_SNR_DB,
+                                  seed=COLD_SEED[n_ports],
+                                  sfn0=COLD_SFN0, crnti=0 if n_ports == 1 else CRNTI,
+                                  mcs_data=COLD_MCS, lead=COLD_LEAD, cfo=COLD_CFO,
+                                  port_gains=PORT_GAINS)
+    print(f"{tag}: {COLD_FRAMES} frames of a 20 MHz {n_ports}-port cell (id {cell.cell_id}" +
+          (f", port gains {PORT_GAINS}" if n_ports == 2 else "") + "): "
+          f"{len(stream.iq)} samples at {cell.srate / 1e6:.2f} Msps, {stream.iq.nbytes / 1e6:.1f} "
+          f"MB, lead {COLD_LEAD}, CFO {COLD_CFO}, {COLD_SNR_DB} dB; built on the host in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def acquire(device):
+        r = Receiver(ArrayRadio(stream.iq, cell.srate), device=device)
+        found = r.cell_search()
+        check(found is not None, f"{tag}: cell search on {device} found nothing")
+        before = viterbi.launches
+        got = r.decode_mib_stream(found[0], found[2], found[3], found[1])
+        check(got is not None, f"{tag}: no MIB on {device}")
+        return r, found, got, viterbi.launches - before
+
+    acquire(dev)  # first calls: cuFFT plans, cuDNN, cuBLAS
+    zero_all(bcjr, viterbi)
+    r, found, (got_cell, mib, t_sf0), mib_launches = acquire(dev)
+    cell_id, is_sf5, t_off, cfo = found
+    check(viterbi.launches == mib_launches == n_ports, f"{tag}: {mib_launches} Viterbi "
+          f"launches for the MIB, expected {n_ports} (single-port hypothesis" +
+          (", then the Alamouti one)" if n_ports == 2 else ")"))
+    check((got_cell.cell_id, got_cell.n_prb, got_cell.n_ports) == (cell.cell_id, 100, n_ports),
+          f"{tag}: acquired {got_cell}")
+    check(abs(cfo - COLD_CFO) < 0.02, f"{tag}: CFO {cfo}")
+    check(COLD_SFN0 <= mib.sfn < COLD_SFN0 + COLD_FRAMES and mib.n_prb == 100,
+          f"{tag}: MIB {mib}")
+    # the boundary found is that of frame (mib.sfn - COLD_SFN0) of the stream
+    want_off = COLD_LEAD + (mib.sfn - COLD_SFN0) * 10 * cell.sf_len
+    check(abs(t_sf0 - want_off) <= 32, f"{tag}: subframe 0 at {t_sf0}, built at {want_off}")
+
+    r_c, found_c, (cell_c, mib_c, t_c), _ = acquire("cpu")
+    check(found_c[:3] == found[:3] and (cell_c, mib_c, t_c) == (got_cell, mib, t_sf0),
+          f"{tag}: card {found} {mib} differs from the CPU {found_c} {mib_c}")
+    peak = r.metrics["peak"]
+    check(abs(found_c[3] - cfo) < 1e-3 and abs(r_c.metrics["peak"] - peak) < 1e-3 * peak,
+          f"{tag}: CFO card {cfo}, CPU {found_c[3]}; peak {peak}, {r_c.metrics['peak']}")
+    print(f"{tag}: cell {cell_id}, is_sf5 {is_sf5}, offset {t_off}, CFO {cfo:.4f} (CPU "
+          f"{found_c[3]:.4f}), peak {peak:.3f}; MIB sfn {mib.sfn} (quarter {mib.sfn % 4}), "
+          f"{got_cell.n_prb} PRB, {got_cell.n_ports} port(s), {mib_launches} Viterbi "
+          f"launch(es) at B=4 n=40; card = CPU on every decision", flush=True)
+
+    # steady state to the subframe that carries the grant
+    rnti, target, ue_specific = ((SI_RNTI, 5, False) if n_ports == 1
+                                 else (CRNTI, rx.DATA_SF, True))
+    ue = UeDl(got_cell, device=dev)
+    res = tti_hit = None
+    for tti, iq in r.subframes(got_cell, t_sf0, cfo, mib.sfn, 0, n=26):
+        if tti % 10 == target and (n_ports == 2 or (tti // 10) % 2 == 0):
+            before = viterbi.launches
+            res = ue.process(iq, target, rnti, ue_specific=ue_specific)
+            blind_launches = viterbi.launches - before
+            tti_hit = tti
+            break
+    torch.cuda.synchronize()
+    counts, vit = dict(bcjr.launches), viterbi.launches
+    check(res is not None, f"{tag}: the stream ended before subframe {target}")
+    check(r.state == "SYNC_DONE" and abs(r.metrics["cfo_hz"] - COLD_CFO * 15e3) < 300,
+          f"{tag}: state {r.state}, {r.metrics}")
+    check(res.cfi == stream.cfi and len(res.grants) == 1 and bool(res.tb_ok.all()),
+          f"{tag}: CFI {res.cfi}, grants {res.grants}, tb_ok {res.tb_ok}")
+    bits = res.payload.reshape(-1)
+    if n_ports == 1:
+        check(res.grants[0].tbs == stream.si_grant.tbs
+              and np.packbits(bits).tobytes()[: len(sib)] == sib, f"{tag}: SIB bytes differ")
+        what = f"SIB ({len(sib)} bytes in TBS {res.grants[0].tbs}) exact"
+    else:
+        frame = tti_hit // 10 - COLD_SFN0
+        check(bool((bits == stream.data[(frame, target)]).all()), f"{tag}: C-RNTI TB differs")
+        what = f"C-RNTI TB (TBS {res.grants[0].tbs}) bit-exact through SFBC control + Alamouti"
+    # the kernels ran at the shapes that phases 2 and 8 held against the twins
+    (_, k, _, blocks), (_, n_cand, _) = shapes
+    plan = segmentation.plan(res.grants[0].tbs)
+    n_cce, _ = control.pdcch_geometry(got_cell, res.cfi)
+    searched = len(control.search_space_candidates(n_cce, rnti, target, ue_specific))
+    check((plan.k_plus, plan.c, plan.c_minus) == (k, blocks, 0) and searched == n_cand,
+          f"{tag}: ran {plan.c} blocks of K={plan.k_plus} and {searched} candidates, the "
+          f"twins were held at {shapes}")
+    iters = int(res.turbo_iters.max())
+    check(blind_launches == 1 and vit == mib_launches + 1, f"{tag}: {vit} Viterbi launches")
+    check(counts == {n: 2 * iters if n == "r2max" else 0 for n in counts} and iters > 0,
+          f"{tag}: BCJR launches {counts} for {iters} iterations")
+    print(f"{tag}: tti {tti_hit}: CFI {res.cfi}, one grant, {what}; launches: Viterbi "
+          f"{vit} (MIB {mib_launches} + blind search 1 at B={n_cand}), BCJR r2max "
+          f"{counts['r2max']} at {blocks} x K={k}",
+          flush=True)
+
+    # times: host wall with a synchronise, the least of 3 (the radio rewound first)
+    def search():
+        r.radio.seek(0)
+        return r.cell_search()
+
+    search_ms = wall_ms(torch, search)
+    mib_ms = wall_ms(torch, lambda: r.decode_mib_stream(cell_id, t_off, cfo, is_sf5))
+    # whether a live stream keeps up is read off the slowest pass, not the least
+    sub_ms = [t / 20 for t in wall_readings(torch, lambda: sum(1 for _ in r.subframes(
+        got_cell, t_sf0, cfo, mib.sfn, 0, n=20)), reps=5)]
+    iq_hit = next(iq for tti, iq in r.subframes(got_cell, t_sf0, cfo, mib.sfn, 0, n=26)
+                  if tti == tti_hit)
+    ue_ms = wall_ms(torch, lambda: ue.process(iq_hit, target, rnti, ue_specific=ue_specific))
+    r.radio.seek(0)
+    raw = torch.as_tensor(r.radio.rx_now(int(0.03 * cell.srate))[0], device=dev)
+    low = sync.decimate(raw, 16)
+    segs = low[: 6 * 9600].reshape(6, 9600)
+    dec_ms = cuda_ms(torch, lambda: sync.decimate(raw, 16), reps=20)
+    pss_ms = cuda_ms(torch, lambda: sync.pss_correlate(segs), reps=20)
+    h2d_ms = wall_ms(torch, lambda: torch.as_tensor(stream.iq[: raw.shape[0]], device=dev))
+
+    def read():
+        r.radio.seek(0)
+        return r.radio.rx_now(raw.shape[0])
+
+    read_ms = wall_ms(torch, read)
+    print(f"{tag}: ms (host wall, synchronised): cell search over 3 frames {search_ms:.3f} "
+          f"(of it: the radio's read of {raw.shape[0]} samples on the host {read_ms:.3f}, their "
+          f"copy to the card {h2d_ms:.3f}; CUDA events: decimate 16x "
+          f"{dec_ms:.4f}, pss_correlate [6, 9600] {pss_ms:.4f}), MIB {mib_ms:.3f}, steady "
+          f"state per subframe, 5 passes of 20 (one read of the residual CFO each): least "
+          f"{min(sub_ms):.4f}, mean {sum(sub_ms) / len(sub_ms):.4f}, largest {max(sub_ms):.4f} "
+          f"(a subframe lasts 1 ms on air), "
+          f"UeDl.process of the grant's subframe {ue_ms:.3f}", flush=True)
+    return {"r2max": counts["r2max"], "viterbi": vit}
+
+
+def phase_silence(np, dev):
+    """Noise only, 4 frames at 30.72 Msps: no cell, and stream() ends."""
+    from srsue_tpu_torch.phy.cell import Cell
+    from srsue_tpu_torch.phy.receiver import Receiver
+    from srsue_tpu_torch.radio import ArrayRadio
+
+    cell = Cell(n_prb=100)
+    rng = np.random.default_rng(12)
+    n = 4 * 10 * cell.sf_len
+    noise = (0.1 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    r = Receiver(ArrayRadio(noise, cell.srate), device=dev)
+    check(r.cell_search() is None, "phase 12: a cell found in noise")
+    r = Receiver(ArrayRadio(noise, cell.srate), device=dev)
+    status = []
+    r.on_sync_status = status.append
+    check(list(r.stream(10)) == [], "phase 12: stream() yielded subframes from noise")
+    check(r.radio.exhausted and not any(status) and len(status) == 60,
+          f"phase 12: silent stream: {len(status)} indications")
+    print(f"phase 12: noise only: cell_search() is None (peak {r.metrics['peak']:.3f}), "
+          f"stream() ended after {len(status)} out-of-sync indications", flush=True)
+
+
+def phase_tm2(torch, rx, bcjr, viterbi, dev, siso_forced_ms):
+    """rx.make_tm2_rx on rx.build_tm2's B=256 subframes at 26 dB, early exit
+    and forced 8. Returns {form: launches of its BCJR instance}."""
+    t0 = time.perf_counter()
+    clean = rx.build_tm2(BATCH, n_distinct=4)
+    iq = torch.as_tensor(rx.add_noise(clean.rng, clean.td, clean.p_sig, SNR_DB), device=dev)
+    print(f"phase 13: TM2 test vectors B={BATCH} (2 ports, CRS, SFBC PDSCH, MCS 28) built on "
+          f"the host in {time.perf_counter() - t0:.2f} s", flush=True)
+    tbs = clean.grant.tbs
+    out = {}
+    for label, inst, kw in (("early exit", "r2max", {}), ("forced 8", "fused", {"forced": True})):
+        fn = rx.make_tm2_rx(clean.cell, clean.grant, clean.subframe, clean.rnti, clean.payloads,
+                            early_exit=True, device=dev, **kw)
+        fn(iq)
+        torch.cuda.synchronize()
+        zero_all(bcjr, viterbi)
+        stats = {k: float(v) for k, v in fn(iq).items()}
+        torch.cuda.synchronize()
+        counts = dict(bcjr.launches)
+        check(stats["n_ok"] == BATCH and stats["bit_match"] == 1.0, f"TM2 {label}: {stats}")
+        expect = 2 * int(stats["max_iters"])
+        check(counts == {n: expect if n == inst else 0 for n in counts} and viterbi.launches == 0,
+              f"TM2 {label}: BCJR launches {counts}, expected {expect} of {inst} only; "
+              f"Viterbi {viterbi.launches}")
+        if kw:
+            check(stats["mean_iters"] == 8.0, f"TM2 forced: {stats['mean_iters']} iterations")
+        out[inst] = counts[inst]
+        t = cuda_ms(torch, lambda: fn(iq), reps=5)
+        print(f"phase 13: TM2 {label}: {BATCH}/{BATCH} TBs pass, bit-exact; BCJR {inst} "
+              f"x{expect}, mean iters/block {stats['mean_iters']:.3f}; {t:.3f} ms/batch = "
+              f"{stats['n_ok'] * tbs / t / 1e3:.1f} Mbps decoded" + (
+                  f" (SISO forced 8 chain of phase 6: {siso_forced_ms:.3f} ms/batch)"
+                  if kw else ""), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -665,7 +945,8 @@ def main() -> int:
         f"{k} {build.warps_per_sm(k, 104)}" for k in build.HALF_KERNELS) +
         f", fused {build.warps_per_sm('fused', BATCH * 13, 5824, 104)}", flush=True)
 
-    rows = phase_kernel(torch, bcjr, dev)
+    cold = {p: cold_shapes(rx, p) for p in (1, 2)}
+    rows = phase_kernel(torch, bcjr, dev, tuple(cold[p][0] for p in (1, 2)))
     fn, iq, want, launches = phase_chain(torch, entry, bcjr, dev)
 
     bad = iq[:8].clone()
@@ -676,14 +957,22 @@ def main() -> int:
     print("phase 4: corrupted waveform: every CRC fails, no crash", flush=True)
 
     new = phase_new_kernels(torch, bcjr, turbo, dev)
-    new_launches = phase_variant_chains(torch, entry, bcjr, dev, iq, want)
+    new_launches, variant_ms = phase_variant_chains(torch, entry, bcjr, dev, iq, want)
     for line in bench_kernel_variants.report(bench_kernel_variants.run(dev, reps=20)):
         print(f"phase 7: {line}", flush=True)
-    vit_row = phase_viterbi(torch, np, viterbi, convcode, dev)
+    vit_row = phase_viterbi(torch, np, viterbi, convcode, dev,
+                            tuple(cold[p][1] for p in (1, 2)))
     clean, noisy, vit_launches = phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr,
                                                    viterbi, dev)
     phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterbi, dev,
                 clean, noisy)
+    del clean, noisy, iq, want, fn
+    cold1 = phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports=1, phase=11,
+                             shapes=cold[1])
+    cold2 = phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports=2, phase=12,
+                             shapes=cold[2])
+    phase_silence(np, dev)
+    tm2 = phase_tm2(torch, rx, bcjr, viterbi, dev, variant_ms["fused"])
 
     flag = rows[0]
     kernels = [{
@@ -695,15 +984,23 @@ def main() -> int:
         "ms": flag["ms"], "device_ms": flag["device_ms"],
         "device_ms_by": flag["device_ms_by"], "plain_ms": flag["plain_ms"],
         "bound_ms": flag["bound_ms"],
-        "bound_by": flag["bound_by"], "warps_per_sm": warps["r2max"]}]
+        "bound_by": flag["bound_by"], "warps_per_sm": warps["r2max"],
+        "launches_by_path": {"entry early exit": launches, "cold start 1 port": cold1["r2max"],
+                             "cold start 2 ports": cold2["r2max"],
+                             "tm2 early exit": tm2["r2max"]}}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": new_launches[name], **new[name],
-                        "warps_per_sm": warps[name]})
+                        "warps_per_sm": warps[name],
+                        "launches_by_path": {"entry": new_launches[name], **(
+                            {"tm2 forced": tm2["fused"]} if name == "fused" else {})}})
     kernels.append({"name": "viterbi", "route": "cuda",
                     "source": "srsue_tpu_torch/csrc/viterbi.cu",
                     "replaces": "srsue_tpu/phy/convcode.py:85", "launches": vit_launches,
-                    **vit_row, "warps_per_sm": warps["viterbi"]})
+                    **vit_row, "warps_per_sm": warps["viterbi"],
+                    "launches_by_path": {"blind chain": vit_launches,
+                                         "cold start 1 port": cold1["viterbi"],
+                                         "cold start 2 ports": cold2["viterbi"]}})
     for k in kernels:  # no single PyTorch call computes a max-log BCJR or a Viterbi
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,9 @@
 """Control region: PCFICH and PDCCH, REG/CCE geometry, encode and decode
 (36.211 6.7/6.8/6.9, 36.212 5.1.4.2/5.3.3, 36.213 9.1.1). Counterpart of
-the single-port receive side of ``srsue_tpu/phy/control.py`` and of the
-transmit side its test vectors need.
+the receive side of ``srsue_tpu/phy/control.py`` for 1 and 2 ports (the
+2-port control region is SFBC-combined into a pseudo-equalized grid that
+the single-port decoders read) and of the transmit side its test vectors
+need. PHICH is not here yet.
 
 The REG/CCE geometry (quadruplet sub-block interleaver, cell-ID cyclic
 shift, PCFICH and PHICH REGs) is host numpy, cached per configuration; the
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from ..utils.device import to_host
-from . import convcode, crc, modulation, ratematch, regrid, seq
+from . import convcode, crc, equalize, modulation, ratematch, regrid, seq
 from .cell import Cell
 
 # ---------------------------------------------------------------------------
@@ -163,6 +165,65 @@ def pcfich_decode(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int):
 
 
 # ---------------------------------------------------------------------------
+# Transmit diversity (2-port SFBC, 36.211 6.3.4.3) for the control region.
+# Every control channel maps in REG quadruplets whose 4 REs stay adjacent in
+# mapping order, so the SFBC pairs are (0, 1) and (2, 3) of each quadruplet:
+# one precode/combine convention serves PCFICH and PDCCH alike.
+# ---------------------------------------------------------------------------
+
+
+def _sfbc_precode(sym: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Pairwise SFBC (host): port 0 (x0, x1)/sqrt2, port 1 (-x1*, x0*)/sqrt2,
+    the convention ``equalize.alamouti_combine`` inverts."""
+    x0, x1 = sym[0::2], sym[1::2]
+    s = 1.0 / np.sqrt(2.0)
+    p0 = np.stack([x0, x1], axis=-1).reshape(sym.shape) * s
+    p1 = np.stack([-np.conj(x1), np.conj(x0)], axis=-1).reshape(sym.shape) * s
+    return p0.astype(np.complex64), p1.astype(np.complex64)
+
+
+def pcfich_map_tm2(cell: Cell, grids, subframe: int, cfi: int) -> None:
+    p0, p1 = _sfbc_precode(pcfich_encode(cell, subframe, cfi))
+    idx = _pcfich_re(cell)
+    grids[0].reshape(-1)[idx] = p0
+    grids[1].reshape(-1)[idx] = p1
+
+
+@functools.lru_cache(maxsize=64)
+def _control_region_idx(cell: Cell) -> np.ndarray:
+    """Flat RE indices of every REG of the largest control region, in
+    quadruplet order. Narrow cells (n_prb <= 10) carry it over CFI + 1
+    symbols (36.211 Table 6.7-1), so their largest is 4 symbols, not 3."""
+    return np.asarray([re for l in range(regrid.control_span(cell, 3))
+                       for reg in regs_in_symbol(cell, l) for re in reg], dtype=np.int64)
+
+
+def sfbc_equalize_control(cell: Cell, grid: torch.Tensor, h0: torch.Tensor,
+                          h1: torch.Tensor, nvar):
+    """Raw grid and the two ports' channel estimates -> a pseudo-equalized
+    grid whose control-region REs hold the SFBC-combined symbol estimates
+    (paired inside each REG quadruplet), and a per-RE noise grid to match
+    (1e6 elsewhere, so stray REs demap to zero LLR). The single-port
+    decoders (``pcfich_decode``, ``pdcch_blind_*``) then run unchanged on
+    the combined grid. The REG indices are unique, so the indexed
+    assignments are deterministic."""
+    idx = torch.as_tensor(_control_region_idx(cell), device=grid.device)
+    lead = grid.shape[:-2]
+    n = cell.n_sym_sf * cell.n_sc
+
+    def at(g):
+        return g.reshape(g.shape[:-2] + (-1,))[..., idx]
+
+    x, nv_eff = equalize.alamouti_combine(at(grid), at(h0), at(h1), nvar)
+    g_eq = torch.zeros(lead + (n,), dtype=torch.complex64, device=grid.device)
+    g_eq[..., idx] = x.to(torch.complex64)
+    nv_grid = torch.full(lead + (n,), 1e6, dtype=torch.float32, device=grid.device)
+    nv_grid[..., idx] = nv_eff.to(torch.float32)
+    shape = lead + (cell.n_sym_sf, cell.n_sc)
+    return g_eq.reshape(shape), nv_grid.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
 # PDCCH
 # ---------------------------------------------------------------------------
 
@@ -182,14 +243,30 @@ def pdcch_encode(cell: Cell, subframe: int, dci_bits: np.ndarray, rnti: int,
     return coded.reshape(-1)[ratematch.conv_rm_indices(len(b), 72 * l_aggr)]
 
 
-def pdcch_map(cell: Cell, grid: np.ndarray, subframe: int, cfi: int,
-              dci_bits: np.ndarray, rnti: int, n_cce: int, l_aggr: int) -> None:
-    """Map one DCI on CCEs n_cce .. n_cce + l_aggr - 1 (host)."""
+def _pdcch_symbols(cell: Cell, subframe: int, cfi: int, dci_bits: np.ndarray, rnti: int,
+                   n_cce: int, l_aggr: int):
+    """(flat RE indices, QPSK symbols) of one DCI on CCEs n_cce .. n_cce +
+    l_aggr - 1 (host)."""
     n_cce_tot, cce_re = pdcch_geometry(cell, cfi)
     bits = pdcch_encode(cell, subframe, dci_bits, rnti, l_aggr)
     scr = _pdcch_scramble(cell, subframe, 72 * n_cce_tot)[72 * n_cce: 72 * (n_cce + l_aggr)]
-    grid.reshape(-1)[cce_re[n_cce: n_cce + l_aggr].reshape(-1)] = \
-        modulation.modulate_np(bits ^ scr, 2)
+    return cce_re[n_cce: n_cce + l_aggr].reshape(-1), modulation.modulate_np(bits ^ scr, 2)
+
+
+def pdcch_map(cell: Cell, grid: np.ndarray, subframe: int, cfi: int,
+              dci_bits: np.ndarray, rnti: int, n_cce: int, l_aggr: int) -> None:
+    """Map one DCI on CCEs n_cce .. n_cce + l_aggr - 1 (host)."""
+    res, sym = _pdcch_symbols(cell, subframe, cfi, dci_bits, rnti, n_cce, l_aggr)
+    grid.reshape(-1)[res] = sym
+
+
+def pdcch_map_tm2(cell: Cell, grids, subframe: int, cfi: int, dci_bits: np.ndarray,
+                  rnti: int, n_cce: int, l_aggr: int) -> None:
+    """The same DCI, SFBC-precoded onto the two ports' grids (host)."""
+    res, sym = _pdcch_symbols(cell, subframe, cfi, dci_bits, rnti, n_cce, l_aggr)
+    p0, p1 = _sfbc_precode(sym)
+    grids[0].reshape(-1)[res] = p0
+    grids[1].reshape(-1)[res] = p1
 
 
 def search_space_candidates(n_cce: int, rnti: int, subframe: int,

@@ -77,6 +77,13 @@ def attach(bits: np.ndarray, kind: str, mask: int = 0) -> np.ndarray:
     return np.concatenate([np.asarray(bits, dtype=np.uint8).ravel(), par])
 
 
+def check(bits_with_crc: np.ndarray, kind: str, mask: int = 0) -> bool:
+    """Whether the trailing (optionally XOR-masked) CRC matches the bits."""
+    nbits, _ = POLY[kind]
+    b = np.asarray(bits_with_crc, dtype=np.uint8).ravel()
+    return bool(np.array_equal(attach(b[:-nbits], kind, mask), b))
+
+
 @functools.lru_cache(maxsize=64)
 def crc_matrix(n: int, kind: str) -> np.ndarray:
     """M[n, L] uint8 such that parity = (bits @ M) mod 2 — used on-device

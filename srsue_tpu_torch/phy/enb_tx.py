@@ -1,7 +1,8 @@
 """eNodeB-side downlink subframe generation (host numpy): the test vectors
 and benchmark inputs of the receive chain. Counterpart of
-``srsue_tpu/phy/enb_tx.py`` for one antenna port (TM1), plus the full
-control + data subframe (CRS, PCFICH, one PDCCH, PDSCH) that
+``srsue_tpu/phy/enb_tx.py``: one grid per antenna port (TM1 uses port 0;
+TM2 maps the PDSCH with SFBC across ports 0 and 1; CRS are per port), plus
+the full control + data subframe (CRS, PCFICH, one PDCCH, PDSCH) that
 ``bench.build_clean`` assembles."""
 
 from __future__ import annotations
@@ -32,16 +33,22 @@ def add_sync(cell: Cell, grid: np.ndarray, subframe: int) -> None:
                                                      subframe == 5)
 
 
-def build_pdsch_subframe(cell: Cell, codec: PdschCodec,
-                         payload: np.ndarray) -> list[np.ndarray]:
-    """Port-0 subframe grid with CRS (+ sync in subframes 0/5) and the
-    PDSCH transport block; a one-element list like the reference's TM1."""
+def build_pdsch_subframe(cell: Cell, codec: PdschCodec, payload: np.ndarray,
+                         tm2: bool = False) -> list[np.ndarray]:
+    """Subframe grid(s) with CRS (+ sync in subframes 0/5, on port 0) and
+    the PDSCH transport block: one grid per antenna port ([1] for TM1, [2]
+    for TM2 / SFBC)."""
     sf = codec.subframe
-    grid = empty_grid(cell)
-    add_crs(cell, grid, sf, 0)
-    add_sync(cell, grid, sf)
-    codec.map_to_grid(grid, codec.encode_symbols(payload))
-    return [grid]
+    grids = [empty_grid(cell) for _ in range(2 if tm2 else 1)]
+    for p, grid in enumerate(grids):
+        add_crs(cell, grid, sf, p)
+    add_sync(cell, grids[0], sf)
+    syms = codec.encode_symbols(payload)
+    if tm2:
+        codec.map_to_grid_tm2(grids, syms)
+    else:
+        codec.map_to_grid(grids[0], syms)
+    return grids
 
 
 def build_dl_subframe(cell: Cell, codec: PdschCodec, payload: np.ndarray, cfi: int,

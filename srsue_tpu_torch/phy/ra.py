@@ -7,6 +7,9 @@ reconstruction of the remaining widths -- and the same ``dl_grant``.
 
 from __future__ import annotations
 
+import logging
+import os
+
 import numpy as np
 
 from .cell import MOD_16QAM, MOD_64QAM, MOD_QPSK, DlGrant
@@ -228,11 +231,30 @@ def mcs_to_mod_itbs(mcs: int) -> tuple[int, int]:
     return MCS_TABLE[mcs]
 
 
+_warned_widths: set[int] = set()
+
+
 def tbs(i_tbs: int, n_prb: int) -> int:
-    """36.213 7.1.7.2.1 TBS lookup for any width 1..110 (widths outside
-    TBS_EXACT_WIDTHS are generator-model reconstructions)."""
+    """36.213 7.1.7.2.1 TBS lookup for any width 1..110.
+
+    Widths outside TBS_EXACT_WIDTHS return the generator-model
+    reconstruction: self-consistent within this stack, not guaranteed equal
+    to a spec-conformant peer's cell for cell. Such a lookup warns once per
+    width, and raises when SRSUE_TPU_TBS_STRICT=1 is set (for deployments
+    against external peers, which must not take reconstructed values
+    silently), as the reference's ``ra.tbs`` does."""
     if not 1 <= n_prb <= 110:
         raise ValueError(f"n_prb {n_prb} out of range")
+    if n_prb not in TBS_EXACT_WIDTHS:
+        if os.environ.get("SRSUE_TPU_TBS_STRICT", "0") == "1":
+            raise ValueError(f"TBS width n_prb={n_prb} is reconstructed, not "
+                             f"spec-transcribed (SRSUE_TPU_TBS_STRICT=1)")
+        if n_prb not in _warned_widths:
+            _warned_widths.add(n_prb)
+            logging.getLogger("srsue_tpu_torch.ra").warning(
+                "TBS column n_prb=%d is generator-model reconstructed (not "
+                "spec-transcribed); self-consistent in-stack, verify against the "
+                "peer for external interop", n_prb)
     return int(TBS_TABLE[i_tbs, n_prb - 1])
 
 

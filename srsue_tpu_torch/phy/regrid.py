@@ -1,6 +1,6 @@
 """Resource-grid RE index maps, 36.211 6: CRS positions and values, the
-control span, the sync region and the PDSCH RE enumeration per (cell,
-subframe, cfi, allocation). The port's own copy of the functions of
+control span, the sync region, the PBCH REs and the PDSCH RE enumeration
+per (cell, subframe, cfi, allocation). The port's own copy of the functions of
 ``srsue_tpu/phy/regrid.py`` (its reference) that the port reads.
 
 Host numpy, cached per static configuration; flat indices into
@@ -112,6 +112,22 @@ def pss_symbol(cell: Cell) -> int:
 
 def sss_symbol(cell: Cell) -> int:
     return cell.n_sym_slot - 2
+
+
+@functools.lru_cache(maxsize=64)
+def pbch_positions(cell: Cell) -> np.ndarray:
+    """PBCH REs: subframe 0, slot 1 symbols 0..3, central 72 subcarriers,
+    less the CRS REs of four antenna ports whatever the cell has (36.211
+    6.6.4). Returns [n_re, 2] (symbol, subcarrier) in mapping order."""
+    ns = cell.n_sym_slot
+    res = []
+    for l in range(4):
+        reserved = set()
+        if l in (0, 1):  # CRS of ports 0/1 (l = 0) and 2/3 (l = 1)
+            for v in (0, 3):
+                reserved.update((v + cell.vshift) % 6 + 6 * m for m in range(cell.n_sc // 6))
+        res += [(ns + l, k) for k in _center72(cell) if k not in reserved]
+    return np.asarray(res, dtype=np.int32)
 
 
 @functools.lru_cache(maxsize=1024)

@@ -1,6 +1,9 @@
-"""UE downlink subframe processor for single-port (SISO, TM1) cells:
-OFDM demod -> channel estimate -> ZF -> PCFICH -> PDCCH blind search ->
-PDSCH decode -> metrics. Counterpart of ``srsue_tpu/phy/ue_dl.py``.
+"""UE downlink subframe processor: OFDM demod -> channel estimate ->
+equalization -> PCFICH -> PDCCH blind search -> PDSCH decode -> metrics.
+Counterpart of ``srsue_tpu/phy/ue_dl.py``. A 1-port cell (TM1) is
+zero-forced; a 2-port cell (TM2) takes the transmit-diversity chain: both
+ports estimated, the control region SFBC-combined
+(``control.sfbc_equalize_control``) and the PDSCH REs Alamouti-combined.
 
 A [batch] axis of independent subframes rides through every stage. The
 stages run eagerly on the device of the input with cached codecs and
@@ -44,9 +47,8 @@ class UeDl:
 
     def __init__(self, cell: Cell, n_turbo_iters: int = 8,
                  device: str | torch.device = "cuda"):
-        if cell.n_ports != 1:
-            raise NotImplementedError(
-                "UeDl: 2-port (TM2) cells are not ported yet (ROADMAP Slice C item 15)")
+        if cell.n_ports not in (1, 2):
+            raise ValueError(f"UeDl: {cell.n_ports}-port cells are not supported")
         self.cell = cell
         self.n_turbo_iters = n_turbo_iters
         self.device = resolve(device)
@@ -58,16 +60,31 @@ class UeDl:
     def _front_end(self, iq: torch.Tensor, subframe: int):
         cell = self.cell
         grid = ofdm.demodulate(cell, iq)
-        h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
-        g_eq, nv_eff = equalize.zf(grid, h, nvar)
-        return grid, h, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp)
+        hs, nvar, rsrp = self._estimate(grid, subframe)
+        if len(hs) == 2:
+            g_eq, nv_eff = control.sfbc_equalize_control(cell, grid, hs[0], hs[1], nvar)
+        else:
+            g_eq, nv_eff = equalize.zf(grid, hs[0], nvar)
+        return grid, hs, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp)
+
+    def _estimate(self, grid: torch.Tensor, subframe: int):
+        """(channel estimate of each port, port 0's noise and RSRP)."""
+        h, nvar, rsrp = chest.estimate(self.cell, grid, subframe, port=0)
+        if self.cell.n_ports == 2:
+            return (h, chest.estimate(self.cell, grid, subframe, port=1)[0]), nvar, rsrp
+        return (h,), nvar, rsrp
 
     # --- stage 2: grant-known PDSCH chain --------------------------------
-    def _pdsch_chain(self, grid, h, nvar, grant: DlGrant, rnti: int, subframe: int,
+    def _pdsch_chain(self, grid, hs, nvar, grant: DlGrant, rnti: int, subframe: int,
                      cfi: int):
         codec = get_codec(self.cell, grant, rnti, subframe, cfi, self.n_turbo_iters,
                           self.device)
-        x_eq, nv_eff = equalize.zf(codec.extract_re(grid), codec.extract_re(h), nvar)
+        y = codec.extract_re(grid)
+        if len(hs) == 2:
+            x_eq, nv_eff = equalize.alamouti_combine(
+                y, codec.extract_re(hs[0]), codec.extract_re(hs[1]), nvar)
+        else:
+            x_eq, nv_eff = equalize.zf(y, codec.extract_re(hs[0]), nvar)
         payload, tb_ok, _, iters = codec.decode(x_eq, nv_eff)
         return to_host(payload), to_host(tb_ok), to_host(iters)
 
@@ -75,8 +92,8 @@ class UeDl:
         """Grant-known batched PDSCH decode: [batch, sf_len] IQ ->
         (payload [batch, tbs], tb_ok [batch], iters [batch, C]) on the host."""
         grid = ofdm.demodulate(self.cell, self._iq(iq))
-        h, nvar, _ = chest.estimate(self.cell, grid, subframe, port=0)
-        return self._pdsch_chain(grid, h, nvar, grant, rnti, subframe, cfi)
+        hs, nvar, _ = self._estimate(grid, subframe)
+        return self._pdsch_chain(grid, hs, nvar, grant, rnti, subframe, cfi)
 
     # --- stage 3: blind search (all elements, all formats) -----------------
     def _blind_search(self, g_eq, nv_eff, subframe: int, cfi: int, rnti: int,
@@ -115,10 +132,10 @@ class UeDl:
         search over all batch elements and DCI formats -> PDSCH decode of
         every DL grant found in element 0, for the whole batch.
 
-        formats: DCI sizes to blind-search: "0_1a" always; add "1" for
-        TM1 C-RNTI search, "1c" for SI/P/RA-RNTI."""
+        formats: DCI sizes to blind-search: "0_1a" always; add "1" for the
+        TM1/TM2 C-RNTI search, "1c" for SI/P/RA-RNTI."""
         cell = self.cell
-        grid, h, nvar, g_eq, nv_eff, m = self._front_end(self._iq(iq), subframe)
+        grid, hs, nvar, g_eq, nv_eff, m = self._front_end(self._iq(iq), subframe)
         cfi_dev, _ = control.pcfich_decode(cell, g_eq, nv_eff, subframe)
         cfi = int(to_host(cfi_dev).reshape(-1)[0])
 
@@ -144,7 +161,7 @@ class UeDl:
         if not grants:
             return DlResult(None, None, None, cfi, [], metrics,
                             hits_per_elem=hits_per_elem, decoded=[])
-        decoded = [(g,) + self._pdsch_chain(grid, h, nvar, g, rnti, subframe, cfi)
+        decoded = [(g,) + self._pdsch_chain(grid, hs, nvar, g, rnti, subframe, cfi)
                    for g in grants]
         _, payload, tb_ok, iters = decoded[0]
         return DlResult(payload, tb_ok, iters, cfi, grants, metrics,

@@ -307,3 +307,65 @@ def test_ue_dl_on_card_matches_cpu(cuda_device):
                     (cpu.payload, cpu.tb_ok, cpu.turbo_iters)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(gpu.payload, clean.payloads)
+
+
+def test_cold_start_on_card_matches_cpu(cuda_device):
+    """Cell search and MIB on a 25 PRB stream with a lead and a CFO: the
+    card's decisions equal the CPU's exactly, CFO and peak within 1e-3, and
+    the MIB try is one Viterbi launch at B=4, n=40."""
+    import dataclasses
+
+    from srsue_tpu_torch import rx
+    from srsue_tpu_torch.kernels import viterbi
+    from srsue_tpu_torch.phy.receiver import Receiver
+    from srsue_tpu_torch.radio import ArrayRadio
+
+    cell = Cell(n_prb=25, cell_id=123)
+    stream = rx.build_cell_stream(cell, 3, snr_db=12, sfn0=4, lead=1234, cfo=0.22)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        r = Receiver(ArrayRadio(stream.iq, cell.srate), device=dev)
+        found = r.cell_search()
+        before = viterbi.launches
+        got = r.decode_mib_stream(found[0], found[2], found[3], found[1])
+        assert viterbi.launches == before + (str(dev) != "cpu")
+        out[str(dev)] = (found, got, r.metrics["peak"])
+    (f_c, g_c, peak_c), (f_g, g_g, peak_g) = out["cpu"], out[str(cuda_device)]
+    assert f_g[:3] == f_c[:3] == (123, f_c[1], f_c[2])
+    assert abs(f_g[3] - f_c[3]) < 1e-3 and abs(f_c[3] - 0.22) < 0.02
+    assert abs(peak_g - peak_c) < 1e-3 * peak_c
+    assert dataclasses.asdict(g_g[0]) == dataclasses.asdict(g_c[0])
+    assert g_g[1] == g_c[1] and g_g[2] == g_c[2] and g_c[0].n_prb == 25
+
+
+def test_pbch_dematch_on_card_equals_cpu(cuda_device):
+    """The PBCH's fixed-order sum of the 4 repeats gives the same softbuffer
+    bit for bit on both devices."""
+    from srsue_tpu_torch.phy import pbch
+
+    llr = (torch.randn(4, pbch.E_FRAME, generator=torch.Generator().manual_seed(3)) * 9.0)
+    cpu = pbch.dematch_quarter(llr)
+    gpu = pbch.dematch_quarter(llr.to(cuda_device))
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=0)
+
+
+def test_two_port_ue_dl_on_card_matches_cpu(cuda_device):
+    """UeDl.process on a 2-port 15 PRB cell's C-RNTI subframe: CFI and DCI
+    through the SFBC control region, the TB through Alamouti."""
+    from srsue_tpu_torch import rx
+    from srsue_tpu_torch.phy.ue_dl import UeDl
+
+    cell = Cell(n_prb=15, cell_id=150, n_ports=2)
+    crnti = 0x7B7B
+    stream = rx.build_cell_stream(cell, 1, snr_db=20, seed=3, crnti=crnti, mcs_data=9)
+    sf = rx.DATA_SF
+    iq = stream.iq[sf * cell.sf_len: (sf + 1) * cell.sf_len][None]
+    cpu = UeDl(cell, device="cpu").process(iq, sf, crnti)
+    gpu = UeDl(cell, device=cuda_device).process(iq, sf, crnti)
+    assert gpu.cfi == cpu.cfi == stream.cfi and gpu.grants == cpu.grants
+    assert len(gpu.grants) == 1
+    for a, b in zip((gpu.payload, gpu.tb_ok, gpu.turbo_iters),
+                    (cpu.payload, cpu.tb_ok, cpu.turbo_iters)):
+        np.testing.assert_array_equal(a, b)
+    assert gpu.tb_ok.all()
+    np.testing.assert_array_equal(gpu.payload[0], stream.data[(0, sf)])

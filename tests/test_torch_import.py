@@ -25,7 +25,7 @@ assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("
 ref = sorted(m for m in sys.modules if m == "srsue_tpu" or m.startswith("srsue_tpu."))
 assert not ref, ref
 assert srsue_tpu_torch.kernels.build.load.cache_info().currsize == 0, "built at import"
-print(len(names))
+print(" ".join(names), len(names))
 """
 
 
@@ -38,7 +38,9 @@ def _run(args, cwd):
 def test_every_module_imports_without_jax():
     res = _run(["-c", _IMPORT_ALL], REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 27  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 34  # every module was imported
+    for name in ("phy.sync", "phy.pbch", "phy.receiver", "radio.radio", "mac.rnti"):
+        assert f"srsue_tpu_torch.{name}" in res.stdout
 
 
 def test_chip_smoke_imports_no_jax():
@@ -89,7 +91,11 @@ def _default_device_calls():
     from srsue_tpu_torch.phy.cell import Cell
     from srsue_tpu_torch.phy.ue_dl import UeDl
 
+    from srsue_tpu_torch.phy.receiver import Receiver
+    from srsue_tpu_torch.radio import ArrayRadio
+
     cell, grant = Cell(n_prb=6, cell_id=1), ra.dl_grant(6, 5)
+    cell2 = Cell(n_prb=6, cell_id=1, n_ports=2)
     bits = np.zeros(21, np.uint8)
     pay = np.zeros((1, grant.tbs), np.uint8)
     return {
@@ -97,10 +103,14 @@ def _default_device_calls():
         "PdschCodec": lambda: pdsch.PdschCodec(cell, grant, 0x1234, 1),
         "codec": lambda: pdsch.codec(cell, grant, 0x1234, 1),
         "UeDl": lambda: UeDl(cell),
+        "UeDl_2port": lambda: UeDl(cell2),
+        "make_tm2_rx": lambda: rx.make_tm2_rx(cell2, grant, 1, 0x1234, pay, True),
+        "Receiver": lambda: Receiver(ArrayRadio(np.zeros(8, np.complex64), cell.srate)),
     }
 
 
-@pytest.mark.parametrize("name", ["make_rx", "PdschCodec", "codec", "UeDl"])
+@pytest.mark.parametrize("name", ["make_rx", "PdschCodec", "codec", "UeDl", "UeDl_2port",
+                                  "make_tm2_rx", "Receiver"])
 def test_entry_point_defaults_to_the_card(name):
     """Without a device argument an entry point asks for CUDA, and raises
     on a machine without a GPU."""

@@ -1,8 +1,10 @@
 """Host tables of the torch port against the JAX reference: TBS, grants,
-segmentation, QPP, trellis, turbo encoder, rate-matching maps and the
-PdschCodec tables. All comparisons are exact (integer tables)."""
+segmentation, QPP, trellis, turbo encoder, rate-matching maps, the
+PdschCodec tables, the PBCH REs and the radios. All comparisons are exact
+(integer tables, host numpy)."""
 
 import dataclasses
+import logging
 
 import numpy as np
 import pytest
@@ -18,9 +20,11 @@ from srsue_tpu.phy import segmentation as ref_seg
 from srsue_tpu.phy import seq as ref_seq
 from srsue_tpu.phy import turbo as ref_turbo
 from srsue_tpu.phy.cell import Cell
-from srsue_tpu_torch.mac import pdu
+from srsue_tpu.radio import radio as ref_radio
+from srsue_tpu_torch.mac import pdu, rnti
 from srsue_tpu_torch.phy import cell as port_cell
 from srsue_tpu_torch.phy import crc, pdsch, ra, ratematch, regrid, segmentation, seq, turbo
+from srsue_tpu_torch.radio import radio
 
 
 def _mine(obj):
@@ -41,6 +45,39 @@ def test_tbs_table_every_cell():
     for i_tbs in range(27):
         for n_prb in range(1, 111):
             assert ra.tbs(i_tbs, n_prb) == int(ref_ra.TBS_TABLE[i_tbs, n_prb - 1])
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_reconstructed_tbs_width_warns_once_or_raises(strict, monkeypatch, caplog):
+    """A width outside TBS_EXACT_WIDTHS holds generator-model values: the
+    lookup warns once per width, and raises under SRSUE_TPU_TBS_STRICT=1, on
+    both sides; transcribed widths do neither."""
+    monkeypatch.setattr(ra, "_warned_widths", set())
+    monkeypatch.setattr(ref_ra, "_warned_widths", set())
+    if strict:
+        monkeypatch.setenv("SRSUE_TPU_TBS_STRICT", "1")
+    else:
+        monkeypatch.delenv("SRSUE_TPU_TBS_STRICT", raising=False)
+    assert 30 not in ra.TBS_EXACT_WIDTHS and 25 in ra.TBS_EXACT_WIDTHS
+    for mod, logger in ((ra, "srsue_tpu_torch.ra"), (ref_ra, "srsue_tpu.ra")):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger=logger):
+            if strict:
+                for width in (30, 99):
+                    with pytest.raises(ValueError, match="reconstructed"):
+                        mod.tbs(3, width)
+                with pytest.raises(ValueError, match="reconstructed"):
+                    mod.dl_grant(100, 5, n_prb_alloc=30)
+            else:
+                assert mod.tbs(3, 30) == mod.tbs(3, 30) == int(ref_ra.TBS_TABLE[3, 29])
+                assert mod.tbs(7, 30) == int(ref_ra.TBS_TABLE[7, 29])
+                mod.tbs(3, 99)
+            assert mod.tbs(3, 25) == 1416 and mod.tbs(26, 100) == 75376
+        warned = [r for r in caplog.records if r.name == logger]
+        assert len(warned) == (0 if strict else 2), [r.getMessage() for r in warned]
+        assert all("reconstructed" in r.getMessage() for r in warned)
+    with pytest.raises(ValueError, match="out of range"):
+        ra.tbs(3, 111)
 
 
 @pytest.mark.parametrize("n_prb", [6, 15, 25, 50, 75, 100])
@@ -168,6 +205,55 @@ def test_cell_and_regrid_copies_match_reference(cell):
                                               ref_regrid.pdsch_re(cell, sf, cfi, start, n))
 
 
+@pytest.mark.parametrize("n_prb", [6, 25, 100])
+@pytest.mark.parametrize("n_ports", [1, 2])
+def test_pbch_positions_match_reference(n_prb, n_ports):
+    for cell_id in (0, 42, 150, 503):  # every vshift class
+        cell = Cell(n_prb=n_prb, cell_id=cell_id, n_ports=n_ports)
+        pos = regrid.pbch_positions(_mine(cell))
+        np.testing.assert_array_equal(pos, ref_regrid.pbch_positions(cell))
+        assert pos.shape == (240, 2) and pos.dtype == np.int32
+    ext = Cell(n_prb=n_prb, cell_id=7, n_ports=n_ports, extended_cp=True)
+    np.testing.assert_array_equal(regrid.pbch_positions(_mine(ext)),
+                                  ref_regrid.pbch_positions(ext))
+
+
+def test_radio_copy_matches_reference(tmp_path):
+    """The same reads, seeks, zero padding past the end, timestamps,
+    `exhausted` and TX log from the port's radios and the reference's."""
+    assert rnti.SI_RNTI == 0xFFFF and rnti.P_RNTI == 0xFFFE
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(1000) + 1j * rng.standard_normal(1000)).astype(np.complex64)
+    path = tmp_path / "iq.bin"
+    radio.write_iq(str(path), x.reshape(10, 100))
+    ref_path = tmp_path / "iq_ref.bin"
+    ref_radio.write_iq(str(ref_path), x.reshape(10, 100))
+    assert path.read_bytes() == ref_path.read_bytes()
+    pairs = [(radio.ArrayRadio(x, 1.92e6), ref_radio.ArrayRadio(x, 1.92e6)),
+             (radio.FileRadio(str(path), 1.92e6), ref_radio.FileRadio(str(path), 1.92e6))]
+    for mine, ref in pairs:
+        for step in (("rx", 300), ("rx", 1), ("seek", 950), ("rx", 100), ("rx", 10),
+                     ("seek", 0), ("rx", 0), ("rx", 1000), ("seek", 5000), ("rx", 3)):
+            if step[0] == "seek":
+                assert mine.seek(step[1]) is True and ref.seek(step[1]) is True
+            else:
+                (a, ta), (b, tb) = mine.rx_now(step[1]), ref.rx_now(step[1])
+                np.testing.assert_array_equal(a, b)
+                assert a.dtype == np.complex64 and len(a) == step[1] and ta == tb
+            assert mine.pos == ref.pos and mine.exhausted == ref.exhausted
+        mine.tx(x[:4], 0.5)
+        ref.tx(x[:4], 0.5)
+        assert mine.tx_log[0][0] == ref.tx_log[0][0] == 0.5
+        np.testing.assert_array_equal(mine.tx_log[0][1], ref.tx_log[0][1])
+    base = radio.Radio()
+    assert base.seek(3) is False
+    base.set_rx_srate(7.68e6)
+    assert base.srate == 7.68e6
+    for call in (lambda: base.rx_now(1), lambda: base.tx(x, 0.0)):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
 def test_grant_and_modulation_constants_match_reference():
     assert port_cell.NFFT_BY_PRB == ref_cell.NFFT_BY_PRB
     assert ((port_cell.MOD_BPSK, port_cell.MOD_QPSK, port_cell.MOD_16QAM, port_cell.MOD_64QAM)
@@ -191,6 +277,9 @@ def test_crc_copy_matches_reference(kind):
             np.testing.assert_array_equal(crc.attach(bits, kind, mask),
                                           ref_crc.attach(bits, kind, mask))
         np.testing.assert_array_equal(crc.crc_matrix(n, kind), ref_crc.crc_matrix(n, kind))
+        word = crc.attach(bits, kind, 0x1234)
+        for mask in (0, 0x1234):
+            assert crc.check(word, kind, mask) == ref_crc.check(word, kind, mask) == bool(mask)
 
 
 def test_seq_copy_and_bits_to_bytes_match_reference():

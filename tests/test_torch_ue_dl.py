@@ -1,5 +1,6 @@
-"""The port's SISO UE DL facade (phy/ue_dl.py) against the JAX package's
-UeDl on the same noisy IQ: CFI, blind-search hits of every batch element
+"""The port's UE DL facade (phy/ue_dl.py) on 1-port cells against the JAX
+package's UeDl on the same noisy IQ (tests/test_torch_tm2.py holds the
+2-port cells): CFI, blind-search hits of every batch element
 and format, the DL grants, and the decoded payloads, CRC verdicts and
 turbo iterations equal; the channel metrics agree to float32 rounding
 (rtol 1e-4)."""
@@ -134,5 +135,7 @@ def test_decode_pdsch_and_two_ports():
     for x, y in zip(got, ref, strict=True):
         np.testing.assert_array_equal(x, np.asarray(y))
     np.testing.assert_array_equal(got[0], pays)
-    with pytest.raises(NotImplementedError, match="Slice C item 15"):
-        UeDl(_mine(Cell(n_prb=15, cell_id=150, n_ports=2)), device="cpu")
+    two = UeDl(_mine(Cell(n_prb=15, cell_id=150, n_ports=2)), device="cpu")
+    assert two.cell.n_ports == 2  # a 2-port cell takes the TM2 chain
+    with pytest.raises(ValueError, match="4-port"):
+        UeDl(_mine(Cell(n_prb=15, cell_id=150, n_ports=4)), device="cpu")
