@@ -11,9 +11,10 @@ Phases, each of which fails the run:
      must not spill and must hold at least 12 warps per SM;
   2. the BCJR half-iteration kernel against its plain PyTorch twin at the
      shapes the main path gives it (and K=6144, lw=104 and a window of 36,
-     whose last checkpoint segment is short, and the cold-start paths' B=1
-     shapes: 1 block of K=5760 and 4 of K=4992, under one wave), with
-     random window boundaries; times both with CUDA events;
+     whose last checkpoint segment is short, the cold-start paths' B=1
+     shapes: 1 block of K=5760 and 4 of K=4992, under one wave, and the
+     uplink's B=1 full-width decode: 13 blocks of K=5824), with random
+     window boundaries; times both with CUDA events;
   3. the main path, entry(): 20 MHz MCS 28 (TBS 75376, 13 blocks of
      K=5824), B=256 subframes at 26 dB, CRC early exit and all 8
      iterations masked (converged blocks frozen); every TB passes its CRC
@@ -61,7 +62,19 @@ Phases, each of which fails the run:
      finds no cell and stream() ends;
  13. TM2 at the flagship (rx.build_tm2, rx.make_tm2_rx: 100 PRB, 2 ports,
      MCS 28, B=256, 26 dB), early exit and forced 8: 256/256 TBs bit-exact;
-     ms/batch and Mbps beside the SISO forced chain's.
+     ms/batch and Mbps beside the SISO forced chain's;
+ 14. the uplink (phy/pusch.py, PHICH, mac/ul_harq.py) on the 100 PRB cell 42:
+     the UE's host encode (encode_sf) of the full-width grant (100 PRB, MCS
+     28, TBS 75376, 13 blocks of K=5824) and of bench.py's UL grant (50 PRB,
+     MCS 20, TBS 19848, 4 blocks of K=4992), ms per subframe over 5 passes
+     of 20; the eNB decode (PuschCodec.decode_sf, CRC early exit) of B=256
+     full-width subframes at 26 dB, 256/256 bit-exact, ms/batch, Mbps,
+     dematch_sf and decode_softbuffers apart, and the B=1 latency; a
+     corrupted subframe fails its CRC; UCI on bench.py's grant (the ACK bit
+     and UlCtrl's 4 CQI bits) found on the card and equal to the CPU's; the
+     UL HARQ loop (UlHarq, PHICH): rv0 NACK, then rv0 + rv2 combined ACK;
+     PHICH ACK and NACK on every group and sequence on 1 and 2 ports, card =
+     CPU; every r2max launch at a shape phase 2 held against the twin.
 
 Prints the kernels' JSON record (time between CUDA events around repeated
 calls, the kernel's own device time by torch.profiler, plain twin's time,
@@ -119,6 +132,7 @@ NEW_KERNELS = {  # instance: (source, the TPU kernel it replaces)
     "v5": ("srsue_tpu_torch/csrc/bcjr_half_r4.cu", f"{TURBO}:487"),
     "fused": ("srsue_tpu_torch/csrc/bcjr_half_fused.cu", f"{TURBO}:1341"),
 }
+UL_HARQ_SNR_DB = 11.0  # bench.py's UL grant: rv0 alone fails, rv0 + rv2 passes
 VITERBI_SHAPES = (  # (label, hypotheses, n): the first is the flagship's
     ("DCI 1A, 100 PRB", 4608, 44),
     ("DCI 1, 100 PRB", 4608, 54),
@@ -203,6 +217,7 @@ def fused_bound(blocks: int, k: int, lw: int) -> dict:
 def zero_counts(bcjr) -> None:
     for name in bcjr.launches:
         bcjr.launches[name] = 0
+        bcjr.shapes[name].clear()
 
 
 def half_args(torch, dev, k, lw, blocks):
@@ -222,7 +237,7 @@ def half_args(torch, dev, k, lw, blocks):
 
 def phase_kernel(torch, bcjr, dev, cold):
     """Kernel vs plain twin at the main paths' shapes; `cold` holds the
-    cold-start paths' (B=1: grids far under one wave)."""
+    cold-start paths' and the uplink's (B=1: grids far under one wave)."""
     rows = []
     for label, k, lw, blocks in R2MAX_SHAPES + cold:
         w = k // lw
@@ -785,13 +800,15 @@ def phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports: int, phase: int
         check(bool((bits == stream.data[(frame, target)]).all()), f"{tag}: C-RNTI TB differs")
         what = f"C-RNTI TB (TBS {res.grants[0].tbs}) bit-exact through SFBC control + Alamouti"
     # the kernels ran at the shapes that phases 2 and 8 held against the twins
-    (_, k, _, blocks), (_, n_cand, _) = shapes
+    (_, k, lw, blocks), (_, n_cand, _) = shapes
     plan = segmentation.plan(res.grants[0].tbs)
     n_cce, _ = control.pdcch_geometry(got_cell, res.cfi)
     searched = len(control.search_space_candidates(n_cce, rnti, target, ue_specific))
     check((plan.k_plus, plan.c, plan.c_minus) == (k, blocks, 0) and searched == n_cand,
           f"{tag}: ran {plan.c} blocks of K={plan.k_plus} and {searched} candidates, the "
           f"twins were held at {shapes}")
+    check(bcjr.shapes["r2max"] == {(blocks * (k // lw), lw)},
+          f"{tag}: r2max launched at (windows, lw) {bcjr.shapes['r2max']}, held at {shapes}")
     iters = int(res.turbo_iters.max())
     check(blind_launches == 1 and vit == mib_launches + 1, f"{tag}: {vit} Viterbi launches")
     check(counts == {n: 2 * iters if n == "r2max" else 0 for n in counts} and iters > 0,
@@ -896,6 +913,240 @@ def phase_tm2(torch, rx, bcjr, viterbi, dev, siso_forced_ms):
     return out
 
 
+def ul_grants(rx):
+    """The uplink's cell (the flagship's, 100 PRB cell 42) and grants, built
+    as bench.py builds its UL grant (rx.ul_grant): {"full": 100 PRB MCS 28,
+    "bench": 50 PRB MCS 20}."""
+    from srsue_tpu_torch.phy.cell import Cell
+
+    return (Cell(n_prb=rx.N_PRB, cell_id=rx.CELL_ID),
+            {"full": rx.ul_grant(100, 28), "bench": rx.ul_grant(50, 20)})
+
+
+def ul_shapes(rx):
+    """(label, K, lw, blocks) of every r2max decode phase 14 runs: the
+    full-width grant at B=256 and B=1, bench.py's grant at B=1."""
+    from srsue_tpu_torch.phy import segmentation, turbo
+
+    _, grants = ul_grants(rx)
+    out = []
+    for name, batch in (("full", BATCH), ("full", 1), ("bench", 1)):
+        plan = segmentation.plan(grants[name].tbs)
+        check(plan.c_minus == 0, f"uplink: the {name} grant has blocks of two sizes")
+        k = plan.k_plus
+        out.append((f"uplink {name} grant B={batch} K={k}", k, turbo.pick_window(k) or k,
+                    plan.c * batch))
+    return tuple(out)
+
+
+def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
+    """Phase 14: the UE's host encode, the eNB's PUSCH decode at B=256 and
+    B=1, a corrupted subframe, UCI, the UL HARQ loop through PHICH, and
+    PHICH on 1 and 2 ports. `held` is the set of (K, lw, blocks) at which
+    phase 2 held r2max against its twin; every r2max launch here must have
+    run at one of them, as the wrapper records it (bcjr.shapes). Returns the
+    r2max launches of the B=256 decode."""
+    from srsue_tpu_torch.mac.ul_harq import UlHarq
+    from srsue_tpu_torch.phy import control, equalize
+    from srsue_tpu_torch.phy.cell import Cell
+    from srsue_tpu_torch.phy.pusch import PuschCodec
+    from srsue_tpu_torch.phy.ue_ul_ctrl import UlCtrl, UlCtrlConfig
+
+    cell, grants = ul_grants(rx)
+    full, bench_g = grants["full"], grants["bench"]
+    rng = np.random.default_rng(14)
+
+    def codec_of(grant, device=dev, **kw):
+        return PuschCodec(cell, grant, rx.RNTI, rx.UL_SUBFRAME, device=device, **kw)
+
+    held_n = {(b * (k // lw), lw) for k, lw, b in held}  # as [windows, lw]
+
+    def ran_held(what):
+        """Every r2max launch since the last call ran at a shape phase 2 held."""
+        got = set(bcjr.shapes["r2max"])
+        bcjr.shapes["r2max"].clear()
+        check(bool(got) and got <= held_n, f"uplink {what}: r2max launched at (windows, lw) "
+              f"{sorted(got)}; phase 2 held {sorted(held_n)}")
+
+    def noisy(codec, wave, snr_db):
+        """One subframe [1, sf_len] with AWGN at snr_db per allocated subcarrier."""
+        p_sig = float(np.mean(np.abs(wave) ** 2)) * cell.nfft / codec.m_sc
+        return rx.add_noise(rng, wave[None], p_sig, snr_db)
+
+    # the UE's host encode, one subframe per TTI
+    enc_ms = {}
+    for name, grant in grants.items():
+        codec = codec_of(grant)
+        pays = [rng.integers(0, 2, grant.tbs).astype(np.uint8) for _ in range(8)]
+        codec.encode_sf(pays[0])
+        per = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for i in range(20):
+                codec.encode_sf(pays[i % 8])
+            per.append((time.perf_counter() - t0) * 1e3 / 20)
+        enc_ms[name] = per
+        print(f"phase 14: UE host encode_sf, {grant.n_prb} PRB MCS {grant.mcs} (TBS "
+              f"{grant.tbs}, {codec.plan.c} x K={codec.plan.k_plus}), ms per subframe over 5 "
+              f"passes of 20: least {min(per):.4f}, mean {sum(per) / len(per):.4f}, largest "
+              f"{max(per):.4f} (a subframe lasts 1 ms on air)", flush=True)
+
+    # the eNB's decode at full width, B=256 at 26 dB: 4 distinct TBs tiled
+    codec = codec_of(full)
+    t0 = time.perf_counter()
+    ul = rx.build_pusch(BATCH, n_distinct=4, seed=14)
+    check(ul.grant == full and (ul.subframe, ul.rnti) == (codec.subframe, codec.rnti),
+          "uplink: rx.build_pusch's grant differs")
+    iq = torch.as_tensor(rx.add_noise(ul.rng, ul.td, ul.p_sig, SNR_DB), device=dev)
+    want = torch.as_tensor(ul.payloads, device=dev)
+    print(f"phase 14: test vectors B={BATCH} (full-width PUSCH, 4 distinct TBs, {SNR_DB} dB) "
+          f"built on the host in {time.perf_counter() - t0:.2f} s", flush=True)
+    zero_all(bcjr, viterbi)
+    codec.decode_sf(iq)  # first call: cuFFT plans
+    torch.cuda.synchronize()
+    ran_held(f"B={BATCH}")
+    zero_all(bcjr, viterbi)
+    pay, ok, iters = codec.decode_sf(iq)
+    torch.cuda.synchronize()
+    counts = dict(bcjr.launches)
+    loops = int(iters.max())
+    check(bool(ok.all()), f"uplink B={BATCH}: {int((~ok).sum())} TBs failed CRC")
+    check(bool((pay == want).all()), f"uplink B={BATCH}: payload not bit-exact")
+    check(counts == {n: 2 * loops if n == "r2max" else 0 for n in counts}
+          and viterbi.launches == 0 and loops > 0,
+          f"uplink B={BATCH}: launches {counts}, Viterbi {viterbi.launches}, {loops} iterations")
+    launches = counts["r2max"]
+    t = cuda_ms(torch, lambda: codec.decode_sf(iq), reps=5)
+    bufs = codec.dematch_sf(iq)
+    t_dm = cuda_ms(torch, lambda: codec.dematch_sf(iq), reps=5)
+    t_dec = cuda_ms(torch, lambda: codec.decode_softbuffers(bufs), reps=5)
+    ran_held(f"B={BATCH}")
+    print(f"phase 14: eNB decode_sf B={BATCH}: {BATCH}/{BATCH} TBs pass, bit-exact; r2max "
+          f"x{launches} ({loops} iterations, 13 x {BATCH} blocks of K=5824), mean iters/block "
+          f"{float(iters.float().mean()):.3f}; {t:.3f} ms/batch = "
+          f"{int(ok.sum()) * full.tbs / t / 1e3:.1f} Mbps decoded; dematch_sf {t_dm:.3f} ms, "
+          f"decode_softbuffers {t_dec:.3f} ms", flush=True)
+    del bufs
+
+    one = iq[:1].contiguous()
+    pay1, ok1, _ = codec.decode_sf(one)
+    check(bool(ok1.all()) and bool((pay1 == want[:1]).all()), "uplink B=1: not bit-exact")
+    lat = wall_readings(torch, lambda: codec.decode_sf(one), reps=10)
+    print(f"phase 14: eNB decode_sf B=1 latency (host wall, synchronised, 10 calls): least "
+          f"{min(lat):.3f}, mean {sum(lat) / len(lat):.3f}, largest {max(lat):.3f} ms", flush=True)
+    bad = one.clone()
+    bad[:, 2000:12000] = 0  # symbols 1-5, the first DMRS among them
+    _, ok_bad, it_bad = codec.decode_sf(bad)
+    check(not bool(ok_bad.any()), "uplink: a corrupted subframe passed its CRC")
+    ran_held("B=1")
+    print(f"phase 14: corrupted subframe: CRC fails, {int(it_bad.max())} iterations, no crash",
+          flush=True)
+    del iq, want, one, bad
+
+    # UCI on bench.py's grant: the ACK bit and UlCtrl's wideband CQI, B=1
+    ctl = UlCtrl(UlCtrlConfig(cqi_config_index=2, n_prb=cell.n_prb))  # period 5, offset 0
+    for _ in range(30):
+        ctl.update_snr(SNR_DB)
+    cqi = ctl.cqi_for_tti(0)
+    check(cqi is not None and len(cqi) == 4, f"UlCtrl: CQI report {cqi}")
+    pay_u = rng.integers(0, 2, bench_g.tbs).astype(np.uint8)
+    for ack in (True, False):
+        codec_u = codec_of(bench_g, n_cqi_bits=len(cqi), with_ack=True)
+        iq_u = noisy(codec_u, codec_u.encode_sf_uci(pay_u, cqi_bits=cqi, ack=ack), SNR_DB)
+        card = [v.cpu().numpy() for v in codec_u.decode_sf(torch.as_tensor(iq_u, device=dev))]
+        uci_card = codec_u.decode_uci()
+        ran_held("UCI")
+        check(bool(card[1].all()) and bool((card[0] == pay_u).all()), f"UCI ack={ack}: TB")
+        check(uci_card[1] is ack and bool((uci_card[0] == cqi).all()),
+              f"UCI: sent ACK {ack}, CQI {cqi}; found {uci_card}")
+    codec_c = codec_of(bench_g, "cpu", n_cqi_bits=len(cqi), with_ack=True)
+    cpu = [v.numpy() for v in codec_c.decode_sf(torch.as_tensor(iq_u))]
+    uci_cpu = codec_c.decode_uci()
+    check(all((a == b).all() for a, b in zip(card, cpu)) and uci_cpu[1] is uci_card[1]
+          and bool((uci_cpu[0] == uci_card[0]).all()), "UCI: card and CPU disagree")
+    iq_t = torch.as_tensor(iq_u, device=dev)
+    lat_u = wall_readings(torch, lambda: (codec_u.decode_sf(iq_t), codec_u.decode_uci()), reps=10)
+    ran_held("UCI")
+    print(f"phase 14: UCI on PUSCH ({bench_g.n_prb} PRB MCS {bench_g.mcs}, TBS {bench_g.tbs}, "
+          f"{codec_u.plan.c} x K={codec_u.plan.k_plus}): ACK and NACK and CQI {cqi.tolist()} "
+          f"(UlCtrl at {SNR_DB} dB) found, TB bit-exact; card = CPU (payload, CRC, iterations "
+          f"{card[2].tolist()}, ACK, CQI); B=1 decode_sf + decode_uci host wall least "
+          f"{min(lat_u):.3f}, mean {sum(lat_u) / len(lat_u):.3f}, largest {max(lat_u):.3f} ms",
+          flush=True)
+
+    # the UL HARQ loop: UlHarq, eNB-side combining, PHICH to the UE
+    harq = UlHarq()
+    data = rng.bytes(bench_g.tbs // 8)
+    bits = np.unpackbits(np.frombuffer(data, np.uint8))
+    tti, rv = rx.UL_SUBFRAME, harq.new_tx(rx.UL_SUBFRAME, data)
+    n_groups = control.n_phich_groups(cell)
+    group, nseq = control.phich_group_seq(bench_g.prb_start, 0, n_groups)
+    soft, seen = None, []
+    for _ in range(2):
+        codec_h = PuschCodec(cell, dataclasses.replace(bench_g, rv=rv), rx.RNTI, tti % 10,
+                             device=dev)
+        bufs = codec_h.dematch_sf(noisy(codec_h, codec_h.encode_sf(bits), UL_HARQ_SNR_DB))
+        soft = bufs if soft is None else [a + b for a, b in zip(soft, bufs)]
+        pay_h, ok_h, _ = codec_h.decode_softbuffers(soft)
+        ran_held("HARQ")
+        good = bool(ok_h.all())
+        check(not good or bool((pay_h.cpu().numpy() == bits).all()), "UL HARQ: payload differs")
+        # the eNB answers 4 subframes later on the allocation's PHICH
+        sf_phich = (tti + 4) % 10
+        grid = np.zeros((cell.n_sym_sf, cell.n_sc), np.complex64)
+        control.phich_map(cell, grid, sf_phich, group, nseq, good)
+        ack = float(control.phich_decode(cell, grid, sf_phich, group, nseq, device=dev)) > 0
+        seen.append((rv, good, ack))
+        harq.harq_feedback(tti, ack)
+        if ack:
+            break
+        tti += 8
+        data_r, rv = harq.retx(tti)
+        check(data_r == data, "UL HARQ: the retransmission's payload differs")
+    check(seen == [(0, False, False), (2, True, True)] and not harq.has_pending(tti)
+          and harq.metrics["tx_ok"] == 1, f"UL HARQ: {seen}, {harq.metrics}")
+    print(f"phase 14: UL HARQ at {UL_HARQ_SNR_DB} dB ({bench_g.n_prb} PRB MCS {bench_g.mcs}): "
+          f"rv0 alone CRC fail -> PHICH NACK (group {group}, seq {nseq}) -> UlHarq.retx rv 2 -> "
+          f"rv0 + rv2 combined pass, payload bit-exact -> PHICH ACK -> process freed", flush=True)
+
+    # PHICH on 1 and 2 ports: every group and sequence, card = CPU
+    for n_ports in (1, 2):
+        c = Cell(n_prb=100, cell_id=42, n_ports=n_ports)
+        sf = 6
+        sent = {(g, q): bool(rng.integers(2)) for g in range(n_groups) for q in range(8)}
+        tx = [np.zeros((c.n_sym_sf, c.n_sc), np.complex64) for _ in range(n_ports)]
+        for (g, q), a in sent.items():
+            if n_ports == 1:
+                control.phich_map(c, tx[0], sf, g, q, a)
+            else:
+                control.phich_map_tm2(c, tx, sf, g, q, a)
+        k = np.arange(c.n_sc)
+        hs = [((0.9 + 0.3j) * (0.7 if p else 1.0) + 0.2 * np.exp(2j * np.pi * k * (p + 1) / c.n_sc)
+               ).astype(np.complex64) * np.ones((c.n_sym_sf, 1), np.complex64)
+              for p in range(n_ports)]
+        y = sum(h * g for h, g in zip(hs, tx)) + (0.07 * (
+            rng.standard_normal(tx[0].shape) + 1j * rng.standard_normal(tx[0].shape)))
+        metrics = {}
+        for device in (dev, "cpu"):
+            yt, ht = (torch.as_tensor(np.asarray(a, np.complex64), device=device)
+                      for a in (y, np.stack(hs)))
+            if n_ports == 1:
+                g_eq, _ = equalize.zf(yt, ht[0], 0.01)
+            else:
+                g_eq, _ = control.sfbc_equalize_control(c, yt, ht[0], ht[1], 0.01)
+            metrics[str(device)] = torch.stack(
+                [control.phich_decode(c, g_eq, sf, g, q, device=device) for g, q in sent]).cpu()
+        m_card, m_cpu = metrics[str(dev)], metrics["cpu"]
+        want_sign = torch.tensor(list(sent.values()))
+        check(bool(((m_card > 0) == want_sign).all()) and bool(((m_cpu > 0) == want_sign).all()),
+              f"PHICH {n_ports} port(s): a wrong ACK/NACK")
+        torch.testing.assert_close(m_card, m_cpu, rtol=1e-5, atol=1e-5 * float(m_cpu.abs().max()))
+        print(f"phase 14: PHICH on {n_ports} port(s): {len(sent)} PHICHs ({n_groups} groups x 8 "
+              f"sequences, {int(want_sign.sum())} ACK), every decision right on the card, card "
+              f"= CPU (metric within rtol 1e-5)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -946,7 +1197,11 @@ def main() -> int:
         f", fused {build.warps_per_sm('fused', BATCH * 13, 5824, 104)}", flush=True)
 
     cold = {p: cold_shapes(rx, p) for p in (1, 2)}
-    rows = phase_kernel(torch, bcjr, dev, tuple(cold[p][0] for p in (1, 2)))
+    extra = tuple(cold[p][0] for p in (1, 2))
+    held = {(k, lw, b) for _, k, lw, b in R2MAX_SHAPES + extra}
+    extra += tuple(sh for sh in ul_shapes(rx) if sh[1:] not in held)
+    held |= {sh[1:] for sh in extra}
+    rows = phase_kernel(torch, bcjr, dev, extra)
     fn, iq, want, launches = phase_chain(torch, entry, bcjr, dev)
 
     bad = iq[:8].clone()
@@ -973,6 +1228,7 @@ def main() -> int:
                              shapes=cold[2])
     phase_silence(np, dev)
     tm2 = phase_tm2(torch, rx, bcjr, viterbi, dev, variant_ms["fused"])
+    ul_launches = phase_uplink(torch, np, rx, bcjr, viterbi, dev, held)
 
     flag = rows[0]
     kernels = [{
@@ -987,7 +1243,8 @@ def main() -> int:
         "bound_by": flag["bound_by"], "warps_per_sm": warps["r2max"],
         "launches_by_path": {"entry early exit": launches, "cold start 1 port": cold1["r2max"],
                              "cold start 2 ports": cold2["r2max"],
-                             "tm2 early exit": tm2["r2max"]}}]
+                             "tm2 early exit": tm2["r2max"],
+                             "pusch early exit": ul_launches}}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": new_launches[name], **new[name],

@@ -30,7 +30,8 @@ replacing ``decode_forced_tiled`` / ``decode_forced_loop_tiled``).
 
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
 raises. ``launches[name]`` counts the launches of each kernel instance
-(``"fused"`` for the fused half).
+(``"fused"`` for the fused half), and ``shapes[name]`` holds the (windows,
+lw) of [windows, lw] each instance was launched at.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ KERNELS = build.HALF_KERNELS
 NORM_EVERY = 8  # trellis steps between state-0 normalisations (v2v3, v4, v5)
 
 launches = dict.fromkeys((*KERNELS, "fused"), 0)
+shapes: dict[str, set] = {name: set() for name in launches}
 
 
 # --------------------------------------------------------------- plain twins
@@ -216,6 +218,7 @@ def _half_cuda(kernel, lin, par, a0, b0):
         raise RuntimeError(f"bcjr_half_{kernel} kernel launch failed: CUDA error {rc} "
                            f"(n={n}, lw={lw})")
     launches[kernel] += 1
+    shapes[kernel].add((n, lw))
     return ext, alast, bfirst
 
 
@@ -319,6 +322,7 @@ def _fused_cuda(sys_h, par_h, ext_other, idx, alast, bfirst, tail_b, lw):
         raise RuntimeError(f"bcjr_half_fused kernel launch failed: CUDA error {rc} "
                            f"(B={B}, K={K}, lw={lw})")
     launches["fused"] += 1
+    shapes["fused"].add((B * (K // lw), lw))
     return ext, al, bf
 
 

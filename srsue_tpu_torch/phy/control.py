@@ -1,15 +1,17 @@
-"""Control region: PCFICH and PDCCH, REG/CCE geometry, encode and decode
-(36.211 6.7/6.8/6.9, 36.212 5.1.4.2/5.3.3, 36.213 9.1.1). Counterpart of
-the receive side of ``srsue_tpu/phy/control.py`` for 1 and 2 ports (the
-2-port control region is SFBC-combined into a pseudo-equalized grid that
-the single-port decoders read) and of the transmit side its test vectors
-need. PHICH is not here yet.
+"""Control region: PCFICH, PHICH and PDCCH, REG/CCE geometry, encode and
+decode (36.211 6.7/6.8/6.9, 36.212 5.1.4.2/5.3.3, 36.213 9.1.1/9.1.2).
+Counterpart of the receive side of ``srsue_tpu/phy/control.py`` for 1 and
+2 ports (the 2-port control region is SFBC-combined into a pseudo-equalized
+grid that the single-port decoders read) and of the transmit side its test
+vectors need.
 
 The REG/CCE geometry (quadruplet sub-block interleaver, cell-ID cyclic
 shift, PCFICH and PHICH REGs) is host numpy, cached per configuration; the
 device sees only:
 
 * PCFICH: a [32] x [32, 3] correlation product -> argmax CFI;
+* PHICH: a gather of the group's 12 REs and a despread (one product with
+  the sequence's conjugated symbols) -> the soft ACK metric;
 * PDCCH blind search: every (candidate, batch element) hypothesis gathered,
   demapped and dematched into one batch, decoded by ONE
   ``convcode.decode`` call, and checked by one RNTI-masked CRC16 product.
@@ -23,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.device import to_host
+from ..utils.device import resolve, to_host
 from . import convcode, crc, equalize, modulation, ratematch, regrid, seq
 from .cell import Cell
 
@@ -165,28 +167,90 @@ def pcfich_decode(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int):
 
 
 # ---------------------------------------------------------------------------
+# PHICH
+# ---------------------------------------------------------------------------
+
+_PHICH_W = np.array(
+    [[1, 1, 1, 1], [1, -1, 1, -1], [1, 1, -1, -1], [1, -1, -1, 1]], dtype=np.float32,
+)  # the real part; sequences 4..7 are j * w (36.211 Table 6.9.1-2)
+
+
+@functools.lru_cache(maxsize=256)
+def _phich_re(cell: Cell, group: int) -> np.ndarray:
+    regs = regs_in_symbol(cell, 0)
+    return np.asarray([re for r in phich_reg_table(cell)[group] for re in regs[r]],
+                      dtype=np.int32)
+
+
+def phich_symbols(cell: Cell, subframe: int, group: int, nseq: int, ack: bool) -> np.ndarray:
+    """The 12 complex symbols of one PHICH: BPSK on the diagonal, spread by
+    orthogonal sequence nseq, scrambled by the cell and subframe's sequence
+    (the PCFICH's; host)."""
+    c = 1.0 - 2.0 * _cfi_scramble(cell, subframe)[:12].astype(np.float32)
+    z = (1.0 if ack else -1.0) / np.sqrt(2) * (1 + 1j)
+    w = _PHICH_W[nseq % 4] * (1j if nseq >= 4 else 1.0)
+    return (np.tile(w, 3) * z * c).astype(np.complex64)
+
+
+def phich_map(cell: Cell, grid: np.ndarray, subframe: int, group: int, nseq: int,
+              ack: bool) -> None:
+    """Add one PHICH to its group's REs (the group's PHICHs superpose)."""
+    grid.reshape(-1)[_phich_re(cell, group)] += phich_symbols(cell, subframe, group, nseq, ack)
+
+
+@functools.lru_cache(maxsize=256)
+def _phich_tensors(cell: Cell, subframe: int, group: int, nseq: int, device: torch.device):
+    idx = torch.as_tensor(_phich_re(cell, group).astype(np.int64), device=device)
+    ref = np.conj(phich_symbols(cell, subframe, group, nseq, ack=True))
+    return idx, torch.as_tensor(ref, device=device)
+
+
+def phich_decode(cell: Cell, grid_eq, subframe: int, group: int, nseq: int,
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """Equalized grid(s) [..., n_sym_sf, n_sc] -> the soft ACK metric [...]
+    float32, > 0 for ACK: the group's 12 REs gathered and despread. A 1-port
+    grid is the ZF-equalized one; a 2-port grid is the one
+    ``sfbc_equalize_control`` makes. The decode runs on `device` (the card by
+    default): a numpy grid is moved there, a tensor must already be there."""
+    dev = resolve(device)
+    if isinstance(grid_eq, torch.Tensor) and grid_eq.device != dev:
+        raise ValueError(f"grid on {grid_eq.device}, PHICH decode asked on {dev}")
+    g = torch.as_tensor(grid_eq, dtype=torch.complex64, device=dev)
+    idx, ref = _phich_tensors(cell, subframe, group, nseq, dev)
+    return (g.reshape(g.shape[:-2] + (-1,))[..., idx] @ ref).real
+
+
+def phich_group_seq(n_prb_lowest: int, dmrs_cshift: int, n_groups: int) -> tuple[int, int]:
+    """(group, sequence) of the PHICH that answers a PUSCH allocation
+    (36.213 9.1.2)."""
+    group = (n_prb_lowest + dmrs_cshift) % n_groups
+    nseq = ((n_prb_lowest // n_groups) + dmrs_cshift) % 8
+    return group, nseq
+
+
+# ---------------------------------------------------------------------------
 # Transmit diversity (2-port SFBC, 36.211 6.3.4.3) for the control region.
 # Every control channel maps in REG quadruplets whose 4 REs stay adjacent in
 # mapping order, so the SFBC pairs are (0, 1) and (2, 3) of each quadruplet:
-# one precode/combine convention serves PCFICH and PDCCH alike.
+# one precode/combine convention (``equalize.alamouti_precode`` /
+# ``alamouti_combine``) serves PCFICH, PHICH and PDCCH alike.
 # ---------------------------------------------------------------------------
 
 
-def _sfbc_precode(sym: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Pairwise SFBC (host): port 0 (x0, x1)/sqrt2, port 1 (-x1*, x0*)/sqrt2,
-    the convention ``equalize.alamouti_combine`` inverts."""
-    x0, x1 = sym[0::2], sym[1::2]
-    s = 1.0 / np.sqrt(2.0)
-    p0 = np.stack([x0, x1], axis=-1).reshape(sym.shape) * s
-    p1 = np.stack([-np.conj(x1), np.conj(x0)], axis=-1).reshape(sym.shape) * s
-    return p0.astype(np.complex64), p1.astype(np.complex64)
-
-
 def pcfich_map_tm2(cell: Cell, grids, subframe: int, cfi: int) -> None:
-    p0, p1 = _sfbc_precode(pcfich_encode(cell, subframe, cfi))
+    p0, p1 = equalize.alamouti_precode(pcfich_encode(cell, subframe, cfi))
     idx = _pcfich_re(cell)
     grids[0].reshape(-1)[idx] = p0
     grids[1].reshape(-1)[idx] = p1
+
+
+def phich_map_tm2(cell: Cell, grids, subframe: int, group: int, nseq: int,
+                  ack: bool) -> None:
+    """One PHICH, SFBC-precoded, added onto the two ports' grids (host)."""
+    p0, p1 = equalize.alamouti_precode(phich_symbols(cell, subframe, group, nseq, ack))
+    idx = _phich_re(cell, group)
+    grids[0].reshape(-1)[idx] += p0
+    grids[1].reshape(-1)[idx] += p1
 
 
 @functools.lru_cache(maxsize=64)
@@ -204,9 +268,9 @@ def sfbc_equalize_control(cell: Cell, grid: torch.Tensor, h0: torch.Tensor,
     grid whose control-region REs hold the SFBC-combined symbol estimates
     (paired inside each REG quadruplet), and a per-RE noise grid to match
     (1e6 elsewhere, so stray REs demap to zero LLR). The single-port
-    decoders (``pcfich_decode``, ``pdcch_blind_*``) then run unchanged on
-    the combined grid. The REG indices are unique, so the indexed
-    assignments are deterministic."""
+    decoders (``pcfich_decode``, ``phich_decode``, ``pdcch_blind_*``) then
+    run unchanged on the combined grid. The REG indices are unique, so the
+    indexed assignments are deterministic."""
     idx = torch.as_tensor(_control_region_idx(cell), device=grid.device)
     lead = grid.shape[:-2]
     n = cell.n_sym_sf * cell.n_sc
@@ -264,7 +328,7 @@ def pdcch_map_tm2(cell: Cell, grids, subframe: int, cfi: int, dci_bits: np.ndarr
                   rnti: int, n_cce: int, l_aggr: int) -> None:
     """The same DCI, SFBC-precoded onto the two ports' grids (host)."""
     res, sym = _pdcch_symbols(cell, subframe, cfi, dci_bits, rnti, n_cce, l_aggr)
-    p0, p1 = _sfbc_precode(sym)
+    p0, p1 = equalize.alamouti_precode(sym)
     grids[0].reshape(-1)[res] = p0
     grids[1].reshape(-1)[res] = p1
 

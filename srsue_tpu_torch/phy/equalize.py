@@ -1,12 +1,13 @@
 """Equalizers returning (x_hat, nv_eff): the equalized symbols and the
 per-RE effective noise variance for the max-log demapper. Single-port ZF
 and MMSE, and the 2-port Alamouti (SFBC, TM2) combiner with the
-transmitter's precoder. Counterpart of ``srsue_tpu/phy/equalize.py``."""
+transmitters' host precoder. Counterpart of ``srsue_tpu/phy/equalize.py``."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -57,11 +58,14 @@ def alamouti_combine(y: torch.Tensor, h0: torch.Tensor, h1: torch.Tensor, noise_
     return x, torch.repeat_interleave(nv_pair, 2, -1).reshape(x.shape)
 
 
-def alamouti_precode(x: torch.Tensor):
-    """Transmit-side SFBC precoding: [..., n_sym] layer symbols -> the
-    per-port RE streams (port0, port1), each [..., n_sym]."""
-    x0, x1 = x[..., 0::2], x[..., 1::2]
-    s = 1.0 / math.sqrt(2.0)
-    p0 = torch.stack([x0, x1], -1).reshape(x.shape) * s
-    p1 = torch.stack([-torch.conj(x1), torch.conj(x0)], -1).reshape(x.shape) * s
-    return p0, p1
+def alamouti_precode(sym: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Transmit-side SFBC precoding on the host, the convention
+    ``alamouti_combine`` inverts: [..., n_sym] layer symbols (pairs
+    adjacent) -> the two ports' RE streams, port 0 (x0, x1)/sqrt2 and port 1
+    (-x1*, x0*)/sqrt2, complex64. Every 2-port transmitter of the port
+    (PDSCH, PBCH, PCFICH, PHICH, PDCCH) precodes through it."""
+    x0, x1 = sym[..., 0::2], sym[..., 1::2]
+    s = 1.0 / np.sqrt(2.0)
+    p0 = np.stack([x0, x1], axis=-1).reshape(sym.shape) * s
+    p1 = np.stack([-np.conj(x1), np.conj(x0)], axis=-1).reshape(sym.shape) * s
+    return p0.astype(np.complex64), p1.astype(np.complex64)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.device import to_host
-from . import control, convcode, crc, modulation, ratematch, regrid, seq
+from . import convcode, crc, equalize, modulation, ratematch, regrid, seq
 from .cell import Cell
 
 MIB_LEN = 24
@@ -92,7 +92,7 @@ def map_to_grid_tm2(cell: Cell, grids: list[np.ndarray], symbols: np.ndarray) ->
     diversity over consecutive REs in mapping order), in the convention
     ``equalize.alamouti_combine`` inverts."""
     pos = regrid.pbch_positions(cell)
-    p0, p1 = control._sfbc_precode(symbols)
+    p0, p1 = equalize.alamouti_precode(symbols)
     grids[0][pos[:, 0], pos[:, 1]] = p0
     grids[1][pos[:, 0], pos[:, 1]] = p1
 

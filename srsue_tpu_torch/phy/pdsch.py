@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve
-from . import control, crc, modulation, ratematch, regrid, segmentation, seq, turbo
+from . import crc, equalize, modulation, ratematch, regrid, segmentation, seq, turbo
 from .cell import Cell, DlGrant
 
 FILLER_LLR = 1e4  # known-zero filler bits: saturated "bit 0" prior
@@ -148,7 +148,7 @@ class PdschCodec:
 
     def map_to_grid_tm2(self, grids: list, symbols: np.ndarray) -> None:
         """2-port SFBC mapping (36.211 6.3.4.3) onto the per-port grids."""
-        p0, p1 = control._sfbc_precode(symbols)
+        p0, p1 = equalize.alamouti_precode(symbols)
         grids[0].reshape(-1)[self.re_idx] = p0
         grids[1].reshape(-1)[self.re_idx] = p1
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``srsue_tpu/phy/ra.py``: the same 27 x 110 TBS table, built
 the same way -- spec-exact transcribed columns plus the generator-model
-reconstruction of the remaining widths -- and the same ``dl_grant``.
+reconstruction of the remaining widths -- the same ``dl_grant``, and the
+CQI helpers of the uplink's control reports.
 """
 
 from __future__ import annotations
@@ -266,3 +267,18 @@ def dl_grant(n_prb_cell: int, mcs: int, n_prb_alloc: int | None = None,
     mod, i_tbs = mcs_to_mod_itbs(mcs)
     return DlGrant(n_prb=n_prb_alloc, prb_start=prb_start, mcs=mcs,
                    mod_order=mod, tbs=tbs(i_tbs, n_prb_alloc), rv=rv)
+
+
+_CQI_SNR_DB = (-6.7, -4.7, -2.3, 0.2, 2.4, 4.3, 5.9, 8.1, 10.3, 11.7, 14.1, 16.3, 18.7,
+               21.0, 22.7)
+
+
+def cqi_from_snr(snr_db: float) -> int:
+    """CQI report from the wideband SNR (``srslte_cqi_from_snr``): ~1.9 dB per
+    CQI step, CQI 7 at ~9 dB (the QPSK -> 16QAM crossover)."""
+    return int(np.clip(int(np.searchsorted(np.asarray(_CQI_SNR_DB), snr_db)), 0, 15))
+
+
+def mcs_from_cqi(cqi: int) -> int:
+    """Rough CQI -> MCS mapping of the link-adaptation loop."""
+    return int(np.clip(int(cqi * 28 / 15), 0, 28))

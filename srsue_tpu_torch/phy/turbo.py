@@ -1,8 +1,8 @@
 """LTE turbo codec (36.212 5.1.3.2): rate-1/3 PCCC with QPP interleaver.
 
 Counterpart of ``srsue_tpu/phy/turbo.py``. The host side (QPP and trellis
-tables, the numpy encoder used to make test vectors) is carried over as
-numpy; the decoder is the batched max-log-MAP iteration loop in torch
+tables, and the encoder, vectorised over the block, of the UE's uplink and
+of the test vectors) is carried over as numpy; the decoder is the batched max-log-MAP iteration loop in torch
 around the windowed BCJR half-iteration of ``kernels/bcjr.py``.
 
 LLR convention: positive = bit 0.
@@ -143,22 +143,42 @@ def radix4_tables():
     return fwd, tuple(paths)
 
 
+_IMPULSE_PERIOD = 7  # 1/(1 + D^2 + D^3): primitive, impulse response 1011100 repeating
+_IMPULSE_TAPS = (0, 2, 3, 4)  # the delays (mod 7) where that response is 1
+
+
 def _rsc_encode(bits: np.ndarray):
-    """One RSC over one block: (parity[k], tail_sys[3], tail_par[3])."""
+    """RSCs over the rows of [n, K] bits, vectorised over the whole block:
+    (parity [n, K], tail_sys [n, 3], tail_par [n, 3]).
+
+    The register input a_t = u_t ^ a_{t-2} ^ a_{t-3} is u filtered by
+    1/(1 + D^2 + D^3), whose impulse response has period 7 and is 1 at the
+    delays 0, 2, 3, 4 (mod 7). With Q the XOR prefix of u within each
+    residue class mod 7 (Q_t = u_t ^ Q_{t-7}), a_t = Q_t ^ Q_{t-2} ^ Q_{t-3}
+    ^ Q_{t-4}; the parity is p_t = a_t ^ a_{t-1} ^ a_{t-3} and the state after
+    K bits is (a_{K-1}, a_{K-2}, a_{K-3})."""
+    n, k = bits.shape
+    m = -(-k // _IMPULSE_PERIOD)
+    u = np.zeros((n, m * _IMPULSE_PERIOD), np.uint8)
+    u[:, :k] = bits
+    q = np.bitwise_xor.accumulate(u.reshape(n, m, _IMPULSE_PERIOD), axis=1).reshape(n, -1)
+    pad = 4  # a zero history before t = 0
+    qp = np.concatenate([np.zeros((n, pad), np.uint8), q[:, :k]], axis=1)
+    a = np.zeros((n, pad + k), np.uint8)
+    for d in _IMPULSE_TAPS:
+        a[:, pad:] ^= qp[:, pad - d:pad - d + k]
+    p = a[:, pad:] ^ a[:, pad - 1:pad - 1 + k] ^ a[:, pad - 3:pad - 3 + k]
+    # trellis termination: 3 steps from the final state, input = feedback
     ns, par, term_u = _trellis()
-    s = 0
-    p = np.empty(len(bits), np.uint8)
-    for i, u in enumerate(bits.tolist()):
-        p[i] = par[s, u]
-        s = ns[s, u]
-    tail_sys = np.empty(3, np.uint8)
-    tail_par = np.empty(3, np.uint8)
+    s = (a[:, pad + k - 1].astype(np.int64) << 2) | (a[:, pad + k - 2] << 1) | a[:, pad + k - 3]
+    tail_sys = np.empty((n, 3), np.uint8)
+    tail_par = np.empty((n, 3), np.uint8)
     for i in range(3):
-        u = term_u[s]  # the feedback-cancelling input terminates the trellis
-        tail_sys[i] = u
-        tail_par[i] = par[s, u]
-        s = ns[s, u]
-    assert s == 0
+        uu = term_u[s]
+        tail_sys[:, i] = uu
+        tail_par[:, i] = par[s, uu]
+        s = ns[s, uu]
+    assert not s.any()
     return p, tail_sys, tail_par
 
 
@@ -169,8 +189,7 @@ def encode(bits: np.ndarray) -> np.ndarray:
     k = len(b)
     if k not in QPP_TABLE:
         raise ValueError(f"invalid turbo K={k}")
-    z1, t1x, t1z = _rsc_encode(b)
-    z2, t2x, t2z = _rsc_encode(b[qpp_perm(k)])
+    (z1, z2), (t1x, t2x), (t1z, t2z) = _rsc_encode(np.stack([b, b[qpp_perm(k)]]))
     d = np.zeros((3, k + 4), np.uint8)
     d[0, :k], d[1, :k], d[2, :k] = b, z1, z2
     d[:, k + 0] = t1x[0], t1z[0], t1x[1]

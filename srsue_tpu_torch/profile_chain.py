@@ -6,8 +6,11 @@ Runs, at B subframes (default 256), once each under ``torch.profiler``
 after a warm-up call: the grant-known 20 MHz MCS 28 chain (``entry.entry``)
 with the turbo decoder in each of its forms -- forced 8 iterations (the
 fused half), 8 masked iterations and CRC early exit --; the blind control +
-data chain (``rx.make_rx``, ZF) with CRC early exit and forced; and its
-control stage alone (full-grid ZF, PCFICH, blind search). Prints for each:
+data chain (``rx.make_rx``, ZF) with CRC early exit and forced; its
+control stage alone (full-grid ZF, PCFICH, blind search); and the uplink's
+eNB-side PUSCH decode at full width (``rx.build_pusch``: 100 PRB, MCS 28, 26
+dB), ``PuschCodec.decode_sf`` and its two halves, ``dematch_sf`` and
+``decode_softbuffers`` (CRC early exit). Prints for each:
 the wall time of the call, the summed device time of its kernels, the
 device's idle share of the wall time, and the kernels with the most device
 time.
@@ -23,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import entry, rx
 from .phy import chest, dci, ofdm
+from .phy.pusch import PuschCodec
 from .utils.device import require_cuda
 
 
@@ -63,6 +67,18 @@ def blind_runs(batch: int, dev):
             ("control stage", ctrl, (grid, h, nvar))]
 
 
+def uplink_runs(batch: int, dev):
+    """(label, fn, args) of the eNB-side PUSCH decode at full width and its
+    two halves."""
+    ul = rx.build_pusch(batch, n_distinct=4)
+    iq = torch.as_tensor(rx.add_noise(ul.rng, ul.td, ul.p_sig, 26.0), device=dev)
+    codec = PuschCodec(ul.cell, ul.grant, ul.rnti, ul.subframe, device=dev)
+    bufs = codec.dematch_sf(iq)
+    return [("pusch decode_sf", codec.decode_sf, (iq,)),
+            ("pusch dematch_sf", codec.dematch_sf, (iq,)),
+            ("pusch decode_softbuffers", codec.decode_softbuffers, (bufs,))]
+
+
 def main(batch: int = 256) -> None:
     dev = require_cuda()
     runs = []
@@ -71,7 +87,7 @@ def main(batch: int = 256) -> None:
                        ("early exit", {"early_exit": True})):
         fn, args, _ = entry.entry(dev, batch=batch, n_distinct=4, **form)
         runs.append((mode, fn, args))
-    for mode, fn, args in runs + blind_runs(batch, dev):
+    for mode, fn, args in runs + blind_runs(batch, dev) + uplink_runs(batch, dev):
         r = breakdown(fn, args)
         print(f"{mode} B={batch}: wall {r['wall_ms']:.3f} ms, kernels "
               f"{r['device_ms']:.3f} ms, device idle {100 * r['idle_share']:.1f}%")

@@ -2,7 +2,8 @@
 their test vectors: counterpart of ``bench.py``'s ``build_clean``,
 ``make_rx``, ``build_tm2`` and ``make_tm2_rx``, plus the host-made downlink of
 a live cell (``build_cell_stream``) for the cold-start path
-(``phy/receiver.py``).
+(``phy/receiver.py``) and the uplink's PUSCH subframes (``build_pusch``) for
+the eNB-side decode.
 
 One batch of subframes goes OFDM demod -> CRS channel estimate -> full-grid
 ZF or MMSE -> PCFICH -> blind PDCCH search over every search-space
@@ -25,15 +26,17 @@ import torch
 
 from .mac.rnti import SI_RNTI
 from .phy import chest, control, dci, enb_tx, equalize, ofdm, pbch, ra
-from .phy.cell import Cell, DlGrant
+from .phy.cell import Cell, DlGrant, UlGrant
 from .phy.pdsch import PdschCodec
 from .phy.pdsch import codec as cached_codec
+from .phy.pusch import PuschCodec
 
 N_PRB, CELL_ID, SUBFRAME, CFI, RNTI, MCS = 100, 42, 6, 1, 0x1234, 28
 EQS = ("zf", "mmse", "zf_scalar")
 # build_cell_stream's live cell: the SI PDSCH's MCS and the subframe that
 # carries the C-RNTI data
 SI_MCS, DATA_SF = 3, 3
+UL_SUBFRAME = 2  # the uplink's subframe (bench.py's UL encode)
 
 
 class Clean(NamedTuple):
@@ -321,3 +324,52 @@ def build_cell_stream(cell: Cell, n_frames: int, sib: bytes | None = None,
     if lead:
         iq = np.concatenate([np.zeros(lead, np.complex64), iq])
     return CellStream(iq, si_grant, cfi, data)
+
+
+# ---------------------------------------------------------------------------
+# Uplink: PUSCH subframes for the eNB-side decode
+# ---------------------------------------------------------------------------
+
+
+def ul_grant(n_prb: int, mcs: int) -> UlGrant:
+    """A UL grant as bench.py builds one: ``UlGrant`` with the fields of
+    ``ra.dl_grant(n_prb, mcs)`` (from PRB 0), rv 0."""
+    g = ra.dl_grant(n_prb, mcs)
+    return UlGrant(n_prb=g.n_prb, prb_start=g.prb_start, mcs=g.mcs, mod_order=g.mod_order,
+                   tbs=g.tbs, rv=0)
+
+
+class UlClean(NamedTuple):
+    """Noise-free PUSCH test vectors."""
+
+    cell: Cell
+    grant: UlGrant
+    subframe: int
+    rnti: int
+    payloads: np.ndarray      # [B, tbs] uint8
+    td: np.ndarray            # [B, sf_len] complex64
+    p_sig: float              # signal power per allocated subcarrier
+    rng: np.random.Generator
+
+
+def build_pusch(batch: int, n_prb: int = N_PRB, mcs: int = MCS,
+                n_distinct: int | None = None, seed: int = 0) -> UlClean:
+    """`batch` uplink subframes of the flagship cell (100 PRB, cell 42) with
+    PUSCH on ``ul_grant(n_prb, mcs)`` (default: 100 PRB, MCS 28, TBS 75376,
+    13 blocks of K=5824) in subframe 2 for RNTI 0x1234: `n_distinct` random
+    transport blocks (default: one per subframe) drawn from
+    ``default_rng(seed)``, encoded by the UE's host encoder
+    (``PuschCodec.encode_sf``) and tiled. ``add_noise(rng, td, p_sig, snr)``
+    then gives `snr` per allocated subcarrier."""
+    cell = Cell(n_prb=N_PRB, cell_id=CELL_ID)
+    grant = ul_grant(n_prb, mcs)
+    codec = PuschCodec(cell, grant, RNTI, UL_SUBFRAME, device="cpu")  # host encoder only
+    rng = np.random.default_rng(seed)
+    n_distinct = batch if n_distinct is None else n_distinct
+    pls = np.stack([rng.integers(0, 2, grant.tbs).astype(np.uint8)
+                    for _ in range(n_distinct)])
+    tds = np.stack([codec.encode_sf(pl) for pl in pls])
+    sel = np.arange(batch) % n_distinct
+    td = tds[sel]
+    p_sig = float(np.mean(np.abs(td) ** 2)) * cell.nfft / codec.m_sc
+    return UlClean(cell, grant, UL_SUBFRAME, RNTI, pls[sel], td, p_sig, rng)

@@ -59,6 +59,7 @@ def test_kernel_matches_plain(cuda_device, k, lw, blocks):
     before = bcjr.launches["r2max"]
     got = bcjr.bcjr_half_windowed(*args)
     assert bcjr.launches["r2max"] == before + 1
+    assert (blocks * (k // lw), lw) in bcjr.shapes["r2max"]
     ref = bcjr.bcjr_half_windowed_plain(*args)
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-3)
     for a, b in zip(got[1:], ref[1:]):
@@ -369,3 +370,55 @@ def test_two_port_ue_dl_on_card_matches_cpu(cuda_device):
         np.testing.assert_array_equal(a, b)
     assert gpu.tb_ok.all()
     np.testing.assert_array_equal(gpu.payload[0], stream.data[(0, sf)])
+
+
+def test_pusch_with_uci_on_card_matches_cpu(cuda_device):
+    """The uplink at 25 PRB, MCS 16 (2 x K=3904), with ACK and 4 CQI bits on
+    PUSCH, 2 subframes at 14 dB: payload, TB CRC, iterations, ACK and CQI
+    equal on the card and the CPU; softbuffers within float32 rounding
+    (rtol 1e-5, floor 1e-5 of the peak); the card decoded by r2max, 2 x the
+    iterations the loop ran; PHICH on the card's grid gives the CPU's sign."""
+    from srsue_tpu_torch.phy import control
+    from srsue_tpu_torch.phy.cell import UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCodec
+
+    cell = Cell(n_prb=25, cell_id=301)
+    g = ra.dl_grant(25, 16)
+    grant = UlGrant(g.n_prb, g.prb_start, g.mcs, g.mod_order, g.tbs)
+    rng = np.random.default_rng(5)
+    payload = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+    cqi = np.array([1, 0, 0, 1], np.uint8)
+    codecs = {str(dev): PuschCodec(cell, grant, 0x1234, 2, n_cqi_bits=4, with_ack=True,
+                                   device=dev) for dev in ("cpu", cuda_device)}
+    wave = codecs["cpu"].encode_sf_uci(payload, cqi_bits=cqi, ack=True)
+    nv = float(np.mean(np.abs(wave) ** 2)) * cell.nfft / cell.n_sc / 10 ** 1.4
+    noisy = (wave + np.sqrt(nv / 2) * (rng.standard_normal((2, wave.size))
+                                       + 1j * rng.standard_normal((2, wave.size)))
+             ).astype(np.complex64)
+    out = {}
+    for dev, codec in codecs.items():
+        before = dict(bcjr.launches)
+        bufs = codec.dematch_sf(noisy)
+        pay, ok, iters = codec.decode_softbuffers(bufs)
+        launched = {k: bcjr.launches[k] - before[k] for k in before}
+        out[dev] = ([b.cpu() for b in bufs], pay.cpu().numpy(), ok.cpu().numpy(),
+                    iters.cpu().numpy(), codec.decode_uci(), launched)
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    for a, b in zip(gpu[0], cpu[0], strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    for a, b in zip(gpu[1:4], cpu[1:4]):
+        np.testing.assert_array_equal(a, b)
+    assert gpu[2].all() and (gpu[1] == payload).all()
+    np.testing.assert_array_equal(gpu[4][0], cpu[4][0])
+    np.testing.assert_array_equal(gpu[4][0], cqi)
+    assert gpu[4][1] is cpu[4][1] is True
+    assert cpu[5] == dict.fromkeys(cpu[5], 0)
+    assert gpu[5] == {k: 2 * int(gpu[3].max()) if k == "r2max" else 0 for k in gpu[5]}
+
+    grid = np.zeros((cell.n_sym_sf, cell.n_sc), np.complex64)
+    group, nseq = control.phich_group_seq(grant.prb_start, 0, control.n_phich_groups(cell))
+    control.phich_map(cell, grid, 6, group, nseq, False)
+    m_gpu = control.phich_decode(cell, grid, 6, group, nseq, device=cuda_device)
+    m_cpu = control.phich_decode(cell, grid, 6, group, nseq, device="cpu")
+    assert m_gpu.device.type == "cuda" and float(m_gpu) < 0 and float(m_cpu) < 0
+    torch.testing.assert_close(m_gpu.cpu(), m_cpu, rtol=1e-5, atol=1e-6)

@@ -38,9 +38,31 @@ def _run(args, cwd):
 def test_every_module_imports_without_jax():
     res = _run(["-c", _IMPORT_ALL], REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 34  # every module was imported
-    for name in ("phy.sync", "phy.pbch", "phy.receiver", "radio.radio", "mac.rnti"):
+    assert int(res.stdout.split()[-1]) >= 42  # every module was imported
+    for name in ("phy.sync", "phy.pbch", "phy.receiver", "radio.radio", "mac.rnti", "phy.pusch",
+                 "phy.pucch", "phy.uci", "phy.srs", "phy.prach", "phy.powerctrl",
+                 "phy.ue_ul_ctrl", "mac.ul_harq"):
         assert f"srsue_tpu_torch.{name}" in res.stdout
+
+
+_IMPORT_UPLINK = """
+import sys
+import srsue_tpu_torch.phy.pusch, srsue_tpu_torch.phy.pucch, srsue_tpu_torch.phy.uci
+import srsue_tpu_torch.phy.srs, srsue_tpu_torch.phy.prach, srsue_tpu_torch.phy.powerctrl
+import srsue_tpu_torch.phy.ue_ul_ctrl, srsue_tpu_torch.mac.ul_harq
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+ref = sorted(m for m in sys.modules if m == "srsue_tpu" or m.startswith("srsue_tpu."))
+assert not ref, ref
+print("ok")
+"""
+
+
+def test_uplink_modules_import_without_jax():
+    """The uplink's modules, imported on their own in a fresh interpreter,
+    load neither JAX nor any module of the JAX package."""
+    res = _run(["-c", _IMPORT_UPLINK], REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
 
 
 def test_chip_smoke_imports_no_jax():
@@ -91,6 +113,9 @@ def _default_device_calls():
     from srsue_tpu_torch.phy.cell import Cell
     from srsue_tpu_torch.phy.ue_dl import UeDl
 
+    from srsue_tpu_torch.phy import control
+    from srsue_tpu_torch.phy.cell import UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCodec
     from srsue_tpu_torch.phy.receiver import Receiver
     from srsue_tpu_torch.radio import ArrayRadio
 
@@ -106,11 +131,14 @@ def _default_device_calls():
         "UeDl_2port": lambda: UeDl(cell2),
         "make_tm2_rx": lambda: rx.make_tm2_rx(cell2, grant, 1, 0x1234, pay, True),
         "Receiver": lambda: Receiver(ArrayRadio(np.zeros(8, np.complex64), cell.srate)),
+        "PuschCodec": lambda: PuschCodec(cell, UlGrant(6, 0, 9, 2, 936), 0x1234, 2),
+        "phich_decode": lambda: control.phich_decode(
+            cell, np.zeros((cell.n_sym_sf, cell.n_sc), np.complex64), 1, 0, 0),
     }
 
 
 @pytest.mark.parametrize("name", ["make_rx", "PdschCodec", "codec", "UeDl", "UeDl_2port",
-                                  "make_tm2_rx", "Receiver"])
+                                  "make_tm2_rx", "Receiver", "PuschCodec", "phich_decode"])
 def test_entry_point_defaults_to_the_card(name):
     """Without a device argument an entry point asks for CUDA, and raises
     on a machine without a GPU."""

@@ -1,7 +1,7 @@
 """Host tables of the torch port against the JAX reference: TBS, grants,
 segmentation, QPP, trellis, turbo encoder, rate-matching maps, the
-PdschCodec tables, the PBCH REs and the radios. All comparisons are exact
-(integer tables, host numpy)."""
+PdschCodec and PuschCodec tables, the PBCH REs and the radios. All
+comparisons are exact (integer tables, host numpy)."""
 
 import dataclasses
 import logging
@@ -13,6 +13,7 @@ from srsue_tpu.mac import pdu as ref_pdu
 from srsue_tpu.phy import cell as ref_cell
 from srsue_tpu.phy import crc as ref_crc
 from srsue_tpu.phy import pdsch as ref_pdsch
+from srsue_tpu.phy import pusch as ref_pusch
 from srsue_tpu.phy import ra as ref_ra
 from srsue_tpu.phy import ratematch as ref_rm
 from srsue_tpu.phy import regrid as ref_regrid
@@ -23,7 +24,8 @@ from srsue_tpu.phy.cell import Cell
 from srsue_tpu.radio import radio as ref_radio
 from srsue_tpu_torch.mac import pdu, rnti
 from srsue_tpu_torch.phy import cell as port_cell
-from srsue_tpu_torch.phy import crc, pdsch, ra, ratematch, regrid, segmentation, seq, turbo
+from srsue_tpu_torch.phy import (crc, pdsch, pusch, ra, ratematch, regrid, segmentation, seq,
+                                  turbo)
 from srsue_tpu_torch.radio import radio
 
 
@@ -121,6 +123,24 @@ def test_numpy_encoder_matches_reference(k):
     np.testing.assert_array_equal(turbo.encode(bits), ref_turbo.encode(bits))
 
 
+def test_vectorised_encoder_over_the_qpp_table():
+    """The encoder without a per-bit loop (XOR prefixes per residue class of
+    the period-7 feedback) equals the reference bit for bit on every 4th K
+    of the QPP table, the first and the largest, with the tail multiplexing;
+    all-zero and all-one blocks included."""
+    rng = np.random.default_rng(7)
+    ks = sorted(set(turbo.VALID_K[::4].tolist()) | {40, 6144})
+    for k in ks:
+        bits = rng.integers(0, 2, k).astype(np.uint8)
+        np.testing.assert_array_equal(turbo.encode(bits), ref_turbo.encode(bits), err_msg=str(k))
+    for k in (40, 1056):
+        for fill in (0, 1):
+            bits = np.full(k, fill, np.uint8)
+            np.testing.assert_array_equal(turbo.encode(bits), ref_turbo.encode(bits))
+    with pytest.raises(ValueError, match="invalid turbo K"):
+        turbo.encode(np.zeros(41, np.uint8))
+
+
 def test_turbo_rm_indices():
     cases = []
     for k in (40, 528, 3904, 5824):
@@ -173,6 +193,52 @@ def test_codec_tables_and_from_arrays(cell, mcs, subframe, rv):
         np.testing.assert_array_equal(mine.encode(payload), ref.encode(payload))
         np.testing.assert_array_equal(mine.encode_symbols(payload),
                                       ref.encode_symbols(payload))
+
+
+def _ul_grant(n_prb, mcs, rv=0, tbs=None):
+    g = ref_ra.dl_grant(n_prb, mcs, rv=rv)
+    return ref_cell.UlGrant(n_prb=g.n_prb, prb_start=g.prb_start, mcs=mcs, mod_order=g.mod_order,
+                            tbs=tbs or g.tbs, rv=rv)
+
+
+PUSCH_CASES = [  # (cell, grant, subframe, n_cqi_bits, with_ack)
+    (Cell(n_prb=6, cell_id=17), _ul_grant(6, 9), 2, 0, False),
+    (Cell(n_prb=6, cell_id=5), _ul_grant(6, 9, rv=2), 7, 6, True),
+    (Cell(n_prb=6, cell_id=17), _ul_grant(6, 5, tbs=500), 1, 4, False),  # filler bits
+    (Cell(n_prb=25, cell_id=301), _ul_grant(25, 16, rv=3), 2, 4, True),
+    (Cell(n_prb=100, cell_id=42), _ul_grant(100, 28), 2, 0, False),  # the full-width grant
+    (Cell(n_prb=100, cell_id=42), _ul_grant(50, 20), 2, 4, True),  # bench.py's UL grant + UCI
+]
+
+
+@pytest.mark.parametrize("cell,grant,subframe,n_cqi,ack", PUSCH_CASES)
+def test_pusch_codec_tables_match_reference(cell, grant, subframe, n_cqi, ack):
+    """PuschCodec's host tables equal the reference's, and the block CRC
+    matrices it takes from pdsch.blk_crc_matrix equal the ones the
+    reference's decode_softbuffers builds inline."""
+    ref = ref_pusch.PuschCodec(cell, grant, 0x1234, subframe, n_cqi_bits=n_cqi, with_ack=ack)
+    mine = pusch.PuschCodec(_mine(cell), _mine(grant), 0x1234, subframe, n_cqi_bits=n_cqi,
+                            with_ack=ack, device="cpu")
+    for name in ("m_sc", "n_data_sym", "n_re", "qm", "G", "E"):
+        assert getattr(mine, name) == getattr(ref, name), name
+    for name in ("cqi_pos", "ack_pos", "data_pos", "_ack_erase", "e_offsets", "scr_bits",
+                 "scr_pm1"):
+        np.testing.assert_array_equal(getattr(mine, name), getattr(ref, name), err_msg=name)
+    for a, b in zip(mine.rm_idx, ref.rm_idx, strict=True):
+        np.testing.assert_array_equal(a, b)
+    p = ref.plan
+    assert mine.plan.block_ks == p.block_ks and mine.plan.f == p.f
+    for i, k in enumerate(p.block_ks):  # the reference's inline construction
+        m = np.zeros((k, 24), np.uint8)
+        f = p.f if i == 0 else 0
+        m[f:k - 24] = ref_crc.crc_matrix(k - 24 - f, "24A") if p.c == 1 else 0
+        if p.c > 1:
+            m[:k - 24] = ref_crc.crc_matrix(k - 24, "24B")
+        m[k - 24:] = np.eye(24, dtype=np.uint8)
+        np.testing.assert_array_equal(mine.blk_crc[k], m)
+        np.testing.assert_array_equal(pdsch.blk_crc_matrix(mine.plan, i, k), m)
+    if cell.n_prb == 100 and grant.n_prb == 100:
+        assert (grant.tbs, p.c, p.block_ks[0], mine.G) == (75376, 13, 5824, 86400)
 
 
 # ------------------------------------------- the port's copies of host tables

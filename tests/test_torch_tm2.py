@@ -76,18 +76,19 @@ def test_alamouti_combine_matches_reference(noise):
 def test_alamouti_precode_matches_reference_and_inverts():
     rng = np.random.default_rng(1)
     x = _cplx(rng, 2, 64)
-    p0, p1 = equalize.alamouti_precode(torch.as_tensor(x))
+    p0, p1 = equalize.alamouti_precode(x)  # the port's one precoder, host numpy
     p0_r, p1_r = ref_eq.alamouti_precode(jnp.asarray(x))
-    _close(p0.numpy(), p0_r)
-    _close(p1.numpy(), p1_r)
-    c0, c1 = control._sfbc_precode(x[0])
-    c0_r, c1_r = ref_control._sfbc_precode(x[0])
-    np.testing.assert_array_equal(c0, c0_r)
-    np.testing.assert_array_equal(c1, c1_r)
-    np.testing.assert_allclose(c0, p0[0].numpy(), rtol=1e-6)
+    _close(p0, p0_r)
+    _close(p1, p1_r)
+    # the reference's control-region precoder, row by row: equal bit for bit
+    for row in range(2):
+        c0_r, c1_r = ref_control._sfbc_precode(x[row])
+        np.testing.assert_array_equal(p0[row], c0_r)
+        np.testing.assert_array_equal(p1[row], c1_r)
+    assert p0.dtype == p1.dtype == np.complex64
     # flat channels g0, g1 per batch element: combine(precode(x)) = x
     g = torch.as_tensor(_cplx(rng, 2, 2, 1))
-    y = p0 * g[0] + p1 * g[1]
+    y = torch.as_tensor(p0) * g[0] + torch.as_tensor(p1) * g[1]
     back, nve = equalize.alamouti_combine(y, g[0].expand_as(y), g[1].expand_as(y), 0.0)
     np.testing.assert_allclose(back.numpy(), x, rtol=1e-4, atol=1e-5)
     assert not nve.any()
