@@ -74,7 +74,21 @@ Phases, each of which fails the run:
      and UlCtrl's 4 CQI bits) found on the card and equal to the CPU's; the
      UL HARQ loop (UlHarq, PHICH): rv0 NACK, then rv0 + rv2 combined ACK;
      PHICH ACK and NACK on every group and sequence on 1 and 2 ports, card =
-     CPU; every r2max launch at a shape phase 2 held against the twin.
+     CPU; every r2max launch at a shape phase 2 held against the twin;
+ 15. the whole UE over the air (Ue, Phy, the MAC and the upper layers against
+     the port's eNB emulator EnbPhy, on a 20 MHz cell 123 with complex AWGN
+     of amplitude 0.01 while attaching): (a) RACH -> RAR -> Msg3 -> Msg4 ->
+     Milenage AKA -> security mode -> reconfiguration with attach accept
+     within 220 TTIs, then one UL and one DL user packet byte-exact; (b) DL
+     HARQ (rotating symbol erasures: a NACK, retransmissions, the packet
+     recovered only by combining) and UL HARQ (PHICH NACKs, the UE's
+     autonomous retransmissions combined at the eNB); (c) the attach on a
+     2-port (TM2) cell; (d) (a) again on the CPU: the same eNB events, attach
+     TTI and bytes; (e) TTIs to attach, host wall ms per TTI of Phy.work and
+     EnbPhy.receive_ul (least, median, largest), the path's launches and
+     Phy.get_metrics(). Every r2max and Viterbi launch of the path ran at a
+     shape that phases 2 and 8 held against the twins (the emulator's grant
+     profile: DL MCS 6 over 4/10/25/100 PRB, UL 4 PRB at MCS 4).
 
 Prints the kernels' JSON record (time between CUDA events around repeated
 calls, the kernel's own device time by torch.profiler, plain twin's time,
@@ -88,6 +102,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -521,6 +536,7 @@ def phase_viterbi(torch, np, viterbi, convcode, dev, cold):
 def zero_all(bcjr, viterbi) -> None:
     zero_counts(bcjr)
     viterbi.launches = 0
+    viterbi.shapes.clear()
 
 
 def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
@@ -1147,6 +1163,328 @@ def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
     return launches
 
 
+# phase 15: the whole UE over the air, the port's Ue + Phy against its EnbPhy
+OTA_PRB, OTA_CELL_ID = 100, 123
+OTA_NOISE = 0.01  # complex AWGN amplitude of the OTA tests (test_harq_ota.py)
+OTA_SEED = 0  # the noise draws of the attach; the UE and eNB identities' stream
+OTA_MAX_TTI = 220
+OTA_PKT_TTIS = 60
+OTA_HARQ_TTIS = 120
+# OFDM symbols erasable without touching control (0-1) or CRS (0, 4, 7, 11);
+# on the uplink every SC-FDMA symbol but the two DMRS symbols (3, 10)
+ERASABLE = (2, 3, 5, 6, 8, 9, 10, 12, 13)
+UL_ERASABLE = (0, 1, 2, 4, 5, 6, 7, 8, 9, 11, 12, 13)
+
+
+def ota_shapes(n_ports: int):
+    """The shapes at which the OTA path launches the kernels, from the
+    emulator's own grant profile (DL MCS 6 over its allocation buckets, UL 4
+    PRB at MCS 4, CFI 2) and the UE's searches: ((label, K, lw, blocks) of
+    every r2max decode, one TB per call, of each K-group; (label,
+    candidates, n) of every blind search: the common space for SI-, RA- and
+    P-RNTI at DCI 1A and 1C sizes, the C-RNTI's UE-specific space of each
+    subframe at DCI 1A and 1 sizes). Phases 2 and 8 hold the kernels
+    against their twins at these shapes; phase 15 checks that it ran no
+    other."""
+    from srsue_tpu_torch.enb import phy as enb_phy
+    from srsue_tpu_torch.enb.stack import EnbStack
+    from srsue_tpu_torch.mac import pdu as pdu_mod
+    from srsue_tpu_torch.phy import control, dci, ra, segmentation, turbo
+    from srsue_tpu_torch.phy.cell import Cell
+    from srsue_tpu_torch.usim.usim import UsimConfig
+
+    cell = Cell(n_prb=OTA_PRB, cell_id=OTA_CELL_ID, n_ports=n_ports)
+    enb = enb_phy.EnbPhy(cell, EnbStack(UsimConfig()), device="cpu")
+    ul = dci.Dci0(riv=dci.riv_encode(cell.n_prb, 0, 4), mcs=enb._ul_mcs, ndi=True, tpc=1)
+    rar = pdu_mod.RarGrant(False, dci.riv_encode(cell.n_prb, 0, 4), enb._ul_mcs, 0, False,
+                           False)
+    tbs = {f"DL {n} PRB MCS {enb._mcs_data}": ra.dl_grant(
+        cell.n_prb, enb._mcs_data, n_prb_alloc=n).tbs for n in enb._alloc_buckets}
+    tbs[f"UL 4 PRB MCS {enb._ul_mcs}"] = dci.dci0_to_grant(cell, ul).tbs
+    tbs["Msg3"] = dci.rar_to_ul_grant(cell, rar).tbs
+    r2 = {}
+    for what, n in tbs.items():
+        plan = segmentation.plan(n)
+        for k in dict.fromkeys(plan.block_ks):
+            lw = turbo.pick_window(k) or k
+            r2.setdefault((k, lw, plan.block_ks.count(k)),
+                          f"ue ota {what} (TBS {n}) K={k} lw={lw}")
+    n_cce, _ = control.pdcch_geometry(cell, enb_phy.CFI)
+    vit = {}
+    sizes = {"1A": dci.size_0_1a(cell.n_prb), "1": dci.size_1(cell.n_prb),
+             "1C": dci.size_1c(cell.n_prb)}
+    for fmt in ("1A", "1C"):
+        n_cand = len(control.search_space_candidates(n_cce, 0xFFFF, 0, False))
+        vit.setdefault((n_cand, sizes[fmt] + 16), f"ue ota common space DCI {fmt}")
+    for sf in range(10):
+        n_cand = len(control.search_space_candidates(n_cce, enb.crnti, sf, True))
+        for fmt in ("1A", "1"):
+            vit.setdefault((n_cand, sizes[fmt] + 16), f"ue ota C-RNTI space DCI {fmt}")
+    return (tuple((label, *sh) for sh, label in r2.items()),
+            tuple((label, *sh) for sh, label in vit.items()))
+
+
+class _SeededUrandom:
+    """Stands in for ``os`` in the UE's RRC and the eNB stack, whose only use
+    of it is ``os.urandom`` (the UE identity, RAND, the GUTI): a seeded
+    stream, so that two runs draw the same identities."""
+
+    def __init__(self, seed: int):
+        import random
+
+        self._rng = random.Random(seed)
+
+    def urandom(self, n: int) -> bytes:
+        return bytes(self._rng.getrandbits(8) for _ in range(n))
+
+
+class OtaLink:
+    """The port's Ue + Phy and EnbPhy on one cell, stepped one TTI at a time
+    over the air: the eNB's DL waveform (plus noise while attaching) into
+    Phy.work, the UE's UL waveform into EnbPhy.receive_ul. Keeps the host
+    wall ms of each call (synchronised when on the card)."""
+
+    def __init__(self, torch, np, dev, n_ports: int, seed: int = OTA_SEED):
+        from srsue_tpu_torch.enb.phy import EnbPhy
+        from srsue_tpu_torch.enb.stack import EnbStack
+        from srsue_tpu_torch.phy.cell import Cell
+        from srsue_tpu_torch.phy.phy import Phy
+        from srsue_tpu_torch.ue import Ue
+
+        self.torch, self.np = torch, np
+        self.sync = torch.device(dev).type == "cuda"
+        self._ids = _SeededUrandom(seed)
+        with self._seeded():
+            self.cell = Cell(n_prb=OTA_PRB, cell_id=OTA_CELL_ID, n_ports=n_ports)
+            self.phy = Phy(self.cell, device=dev)
+            self.ue = Ue(phy=self.phy)
+            self.phy.mac, self.phy.rrc = self.ue.mac, self.ue.rrc
+            self.stack = EnbStack(self.ue.usim.cfg)
+            self.enb = EnbPhy(self.cell, self.stack, device=dev)
+        self.rng = np.random.default_rng(seed)
+        self.tti = 0
+        self.work_ms, self.ul_ms = [], []
+
+    @contextlib.contextmanager
+    def _seeded(self):
+        """This link's identity stream in place of ``os`` in the RRC and the
+        eNB stack while it runs."""
+        from srsue_tpu_torch.enb import stack as stack_mod
+        from srsue_tpu_torch.rrc import rrc as rrc_mod
+
+        saved = rrc_mod.os, stack_mod.os
+        rrc_mod.os = stack_mod.os = self._ids
+        try:
+            yield
+        finally:
+            rrc_mod.os, stack_mod.os = saved
+
+    def _timed(self, fn, out: list):
+        if self.sync:
+            self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if self.sync:
+            self.torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    def step(self, noise: bool = False, dl_hook=None, ul_hook=None):
+        np, tti = self.np, self.tti
+        with self._seeded():
+            dl = self.enb.build_dl_subframe(tti)
+            if noise:
+                dl = dl + OTA_NOISE * (self.rng.standard_normal(dl.shape) + 1j *
+                                       self.rng.standard_normal(dl.shape)).astype(np.complex64)
+            if dl_hook is not None:
+                dl = dl_hook(tti, dl)
+            ul = self._timed(lambda: self.phy.work(tti, dl), self.work_ms)
+            self.ue.run_tti(tti)
+            if ul_hook is not None:
+                ul = ul_hook(tti, ul)
+            self._timed(lambda: self.enb.receive_ul(tti, ul), self.ul_ms)
+        self.tti += 1
+
+    def attach(self) -> int:
+        self.ue.attach()
+        self.ue.rrc.write_pdu_bcch_bch(b"\x00\x00\x00")
+        while self.tti < OTA_MAX_TTI:
+            self.step(noise=True)
+            if self.ue.is_attached and self.stack.state == "attached":
+                return self.tti - 1
+        raise RuntimeError(f"chip_smoke: phase 15: no attach in {OTA_MAX_TTI} TTIs on "
+                           f"{self.cell}: rrc {self.ue.rrc.state}, events {self.enb.events[:30]}")
+
+    def until(self, cond, n: int, **kw) -> bool:
+        for _ in range(n):
+            self.step(**kw)
+            if cond():
+                return True
+        return False
+
+    def packets(self, tag: str):
+        """One UL and one DL user packet, each delivered byte-exact."""
+        pkt, dpkt = b"\x45\x00over-the-air!", b"\x45\x00downlink-data"
+        n0 = len(self.stack.rx_packets)
+        self.ue.gw.backend.inject_ul(pkt)
+        self.until(lambda: len(self.stack.rx_packets) > n0, OTA_PKT_TTIS)
+        check(self.stack.rx_packets[n0:] == [pkt], f"{tag}: UL packet {self.stack.rx_packets}")
+        m0 = len(self.ue.gw.backend.to_net)
+        self.stack.send_user_packet(dpkt)
+        self.until(lambda: len(self.ue.gw.backend.to_net) > m0, OTA_PKT_TTIS)
+        check(list(self.ue.gw.backend.to_net)[m0:] == [dpkt], f"{tag}: DL packet "
+              f"{list(self.ue.gw.backend.to_net)}")
+        return pkt, dpkt
+
+
+def symbol_bounds(cell):
+    """(start, end) sample of each OFDM symbol of a subframe."""
+    out, pos = [], 0
+    for s in range(cell.n_sym_sf):
+        cp = cell.cp_lengths[0] if s % cell.n_sym_slot == 0 else cell.cp_lengths[1]
+        out.append((pos, pos + cp + cell.nfft))
+        pos += cp + cell.nfft
+    return out
+
+
+def erase_symbols(cell, wf, n_round, erasable=ERASABLE, n_erase=7, step=4):
+    """Zero n_erase of the erasable symbols, the set rotating with the round:
+    one transmission alone is undecodable, two combined are not."""
+    out = wf.copy()
+    bounds = symbol_bounds(cell)
+    for i in range(n_erase):
+        lo, hi = bounds[erasable[(step * n_round + i) % len(erasable)]]
+        out[lo:hi] = 0
+    return out
+
+
+def spread(xs) -> str:
+    s = sorted(xs)
+    return f"least {s[0]:.3f}, median {s[len(s) // 2]:.3f}, largest {s[-1]:.3f}"
+
+
+def phase_ota(torch, np, bcjr, viterbi, dev, held_r2, held_vit, smi):
+    """Phase 15: the port's Ue + Phy attach to its EnbPhy over the air on a
+    20 MHz cell and move a packet each way (a); DL and UL HARQ recover
+    through combining (b); a 2-port cell attaches (c); the same attach on
+    the CPU gives the same eNB events, attach TTI and bytes (d); readings
+    (e). Every r2max and Viterbi launch must run at a shape that phases 2
+    and 8 held against the twins. Returns the path's launches."""
+    tag = "phase 15"
+    held_n = {(b * (k // lw), lw) for k, lw, b in held_r2}
+    zero_all(bcjr, viterbi)
+
+    # (a) attach, then a packet each way
+    t0 = time.perf_counter()
+    link = OtaLink(torch, np, dev, n_ports=1)
+    t_att = link.attach()
+    attach_s = time.perf_counter() - t0
+    check(link.ue.is_attached and link.stack.state == "attached", f"{tag}: not attached")
+    check(link.ue.mac.crnti == link.enb.crnti and link.ue.gw.ip_addr == link.stack.ue_ip,
+          f"{tag}: C-RNTI {link.ue.mac.crnti} / IP {link.ue.gw.ip_addr}")
+    ladder = ("rar_sent", "msg3", "auth_ok", "nas_smc_ok")
+    have = link.enb.events + link.stack.events
+    check(any(e.startswith("prach_") for e in link.enb.events) and all(e in have for e in ladder),
+          f"{tag}: the attach ladder is incomplete: {link.enb.events[:12]} {link.stack.events}")
+    work_att, ul_att = list(link.work_ms), list(link.ul_ms)
+    snap = link.phy.get_metrics()
+    pkt, dpkt = link.packets(f"{tag} (a)")
+    run_a = {"events": list(link.enb.events), "attach_tti": t_att,
+             "ul": list(link.stack.rx_packets), "dl": list(link.ue.gw.backend.to_net)}
+    print(f"{tag}: (a) 100 PRB 1-port cell {OTA_CELL_ID}, noise {OTA_NOISE}: attached at TTI "
+          f"{t_att} (RACH -> RAR -> Msg3 -> Msg4 -> Milenage AKA -> security mode -> "
+          f"reconfiguration with attach accept; stack events {link.stack.events}) in "
+          f"{attach_s:.2f} s; UL packet {pkt!r} and DL packet {dpkt!r} delivered byte-exact",
+          flush=True)
+
+    # (b) HARQ: DL through a NACK and retransmissions, then UL through PHICH NACKs
+    e0 = len(link.enb.events)
+    link.stack.send_user_packet(b"\x45\x00harq-combining-payload")
+    m0 = len(link.ue.gw.backend.to_net)
+    rounds = [0]
+
+    def dl_erase(tti, dl):
+        if tti % 10 in (3, 7):  # the emulator's DL data subframes
+            dl = erase_symbols(link.cell, dl, rounds[0])
+            rounds[0] += 1
+        return dl
+
+    link.until(lambda: len(link.ue.gw.backend.to_net) > m0, OTA_HARQ_TTIS, dl_hook=dl_erase)
+    ev = link.enb.events[e0:]
+    retx = [e for e in ev if e.startswith("dl_retx_rv")]
+    check("dl_nack" in ev and retx and "dl_ack" in ev and list(link.ue.gw.backend.to_net)[m0:]
+          == [b"\x45\x00harq-combining-payload"], f"{tag}: DL HARQ events {ev}")
+    e1 = len(link.enb.events)
+    n0 = len(link.stack.rx_packets)
+    retx0 = link.ue.mac.ul_harq.metrics["retx"]
+    link.ue.gw.backend.inject_ul(b"\x45\x00uplink-harq-payload")
+    rounds[0] = 0
+
+    def ul_erase(tti, ul):
+        if ul is not None and link.phy._phich_wait.get(tti + 4) == tti:  # a PUSCH
+            ul = erase_symbols(link.cell, ul, rounds[0], UL_ERASABLE, n_erase=9, step=6)
+            rounds[0] += 1
+        return ul
+
+    link.until(lambda: len(link.stack.rx_packets) > n0, OTA_HARQ_TTIS, ul_hook=ul_erase)
+    ul_ev = link.enb.events[e1:]
+    check(link.stack.rx_packets[n0:] == [b"\x45\x00uplink-harq-payload"]
+          and any(e.startswith("ul_nack_rv0") for e in ul_ev)
+          and any(e.startswith("ul_retx_ok_rv") for e in ul_ev)
+          and link.ue.mac.ul_harq.metrics["retx"] > retx0, f"{tag}: UL HARQ events {ul_ev}")
+    print(f"{tag}: (b) HARQ over the air: DL events {[e for e in ev if e.startswith('dl_')]}: "
+          f"the packet recovered only by combining; UL events "
+          f"{[e for e in ul_ev if e.startswith('ul_')]}: the packet received", flush=True)
+
+    # (c) a 2-port cell (TM2: SFBC control region, Alamouti PDSCH)
+    link2 = OtaLink(torch, np, dev, n_ports=2)
+    t_att2 = link2.attach()
+    link2.packets(f"{tag} (c)")
+    print(f"{tag}: (c) 100 PRB 2-port cell: attached at TTI {t_att2}, a packet each way "
+          f"byte-exact", flush=True)
+    torch.cuda.synchronize()
+    launches = {"r2max": bcjr.launches["r2max"], "viterbi": viterbi.launches}
+    others = {k: v for k, v in bcjr.launches.items() if k != "r2max" and v}
+    check(launches["r2max"] > 0 and launches["viterbi"] > 0 and not others,
+          f"{tag}: launches {launches}, other BCJR instances {others}")
+    got_r2, got_vit = set(bcjr.shapes["r2max"]), set(viterbi.shapes)
+    check(got_r2 <= held_n, f"{tag}: r2max launched at (windows, lw) {sorted(got_r2 - held_n)}"
+          f", not held in phase 2 ({sorted(held_n)})")
+    check(got_vit <= set(held_vit), f"{tag}: Viterbi launched at (hypotheses, n) "
+          f"{sorted(got_vit - set(held_vit))}, not held in phase 8 ({sorted(held_vit)})")
+
+    # (d) the same attach on the CPU
+    t0 = time.perf_counter()
+    cpu = OtaLink(torch, np, "cpu", n_ports=1)
+    t_cpu = cpu.attach()
+    cpu.packets(f"{tag} (d)")
+    run_d = {"events": list(cpu.enb.events), "attach_tti": t_cpu,
+             "ul": list(cpu.stack.rx_packets), "dl": list(cpu.ue.gw.backend.to_net)}
+    check(run_d == run_a, f"{tag}: the CPU run differs from the card's: {run_d} vs {run_a}")
+    print(f"{tag}: (d) card = CPU at 100 PRB: the same {len(run_a['events'])} eNB events, "
+          f"attach TTI {t_att} and delivered bytes ({time.perf_counter() - t0:.2f} s on the "
+          f"CPU)", flush=True)
+
+    # (e) readings
+    print(f"{tag}: (e) {smi}: TTIs to attach {t_att} (1 port), {t_att2} (2 ports)", flush=True)
+    print(f"{tag}: (e) {smi}: Phy.work host wall ms per TTI while attaching ({len(work_att)} "
+          f"TTIs): {spread(work_att)}; over the whole 1-port run ({len(link.work_ms)} TTIs): "
+          f"{spread(link.work_ms)}; 2 ports: {spread(link2.work_ms)} (a TTI lasts 1 ms)",
+          flush=True)
+    print(f"{tag}: (e) {smi}: EnbPhy.receive_ul host wall ms per TTI while attaching: "
+          f"{spread(ul_att)}; whole 1-port run: {spread(link.ul_ms)}; 2 ports: "
+          f"{spread(link2.ul_ms)}", flush=True)
+    print(f"{tag}: (e) {smi}: launches on the path (a-c): r2max {launches['r2max']} at (windows,"
+          f" lw) {sorted(got_r2)}, Viterbi {launches['viterbi']} at (hypotheses, n) "
+          f"{sorted(got_vit)}", flush=True)
+    print(f"{tag}: (e) {smi}: Phy.get_metrics() over the attach: SNR {snap.dl_snr_db:.2f} dB, "
+          f"RSRP {snap.rsrp_dbm:.2f} dBm, pathloss {snap.pathloss_db:.2f} dB, CFO "
+          f"{snap.cfo_hz:.2f} Hz, turbo iterations {snap.turbo_iters:.3f}, DL MCS "
+          f"{snap.dl_mcs:.2f}, UL MCS {snap.ul_mcs:.2f}, PUSCH {snap.ul_power_dbm:.2f} dBm",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1201,6 +1539,11 @@ def main() -> int:
     held = {(k, lw, b) for _, k, lw, b in R2MAX_SHAPES + extra}
     extra += tuple(sh for sh in ul_shapes(rx) if sh[1:] not in held)
     held |= {sh[1:] for sh in extra}
+    ota = {p: ota_shapes(p) for p in (1, 2)}
+    for sh in ota[1][0] + ota[2][0]:
+        if sh[1:] not in held:
+            extra += (sh,)
+            held.add(sh[1:])
     rows = phase_kernel(torch, bcjr, dev, extra)
     fn, iq, want, launches = phase_chain(torch, entry, bcjr, dev)
 
@@ -1215,8 +1558,13 @@ def main() -> int:
     new_launches, variant_ms = phase_variant_chains(torch, entry, bcjr, dev, iq, want)
     for line in bench_kernel_variants.report(bench_kernel_variants.run(dev, reps=20)):
         print(f"phase 7: {line}", flush=True)
-    vit_row = phase_viterbi(torch, np, viterbi, convcode, dev,
-                            tuple(cold[p][1] for p in (1, 2)))
+    vit_cold = tuple(cold[p][1] for p in (1, 2))
+    held_vit = {sh[1:] for sh in VITERBI_SHAPES + vit_cold}
+    for sh in ota[1][1] + ota[2][1]:
+        if sh[1:] not in held_vit:
+            vit_cold += (sh,)
+            held_vit.add(sh[1:])
+    vit_row = phase_viterbi(torch, np, viterbi, convcode, dev, vit_cold)
     clean, noisy, vit_launches = phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr,
                                                    viterbi, dev)
     phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterbi, dev,
@@ -1229,6 +1577,7 @@ def main() -> int:
     phase_silence(np, dev)
     tm2 = phase_tm2(torch, rx, bcjr, viterbi, dev, variant_ms["fused"])
     ul_launches = phase_uplink(torch, np, rx, bcjr, viterbi, dev, held)
+    ota_launches = phase_ota(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
 
     flag = rows[0]
     kernels = [{
@@ -1244,7 +1593,8 @@ def main() -> int:
         "launches_by_path": {"entry early exit": launches, "cold start 1 port": cold1["r2max"],
                              "cold start 2 ports": cold2["r2max"],
                              "tm2 early exit": tm2["r2max"],
-                             "pusch early exit": ul_launches}}]
+                             "pusch early exit": ul_launches,
+                             "ue_ota": ota_launches["r2max"]}}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": new_launches[name], **new[name],
@@ -1257,7 +1607,8 @@ def main() -> int:
                     **vit_row, "warps_per_sm": warps["viterbi"],
                     "launches_by_path": {"blind chain": vit_launches,
                                          "cold start 1 port": cold1["viterbi"],
-                                         "cold start 2 ports": cold2["viterbi"]}})
+                                         "cold start 2 ports": cold2["viterbi"],
+                                         "ue_ota": ota_launches["viterbi"]}})
     for k in kernels:  # no single PyTorch call computes a max-log BCJR or a Viterbi
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}), flush=True)

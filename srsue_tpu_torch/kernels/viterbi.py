@@ -2,7 +2,7 @@
 launch of the Hopper kernel ``csrc/viterbi.cu``. ``phy/convcode.py::decode``
 checks its input and calls it for CUDA tensors; ``convcode.decode_plain``
 is the kernel's plain PyTorch twin. ``launches`` counts the kernel's
-launches.
+launches and ``shapes`` holds the (hypotheses, n) of each.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 from . import build
 
 launches = 0
+shapes: set = set()
 
 
 def viterbi_cuda(llrs: torch.Tensor) -> torch.Tensor:
@@ -29,4 +30,5 @@ def viterbi_cuda(llrs: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {rc} (B={B}, n={n})")
     launches += 1
+    shapes.add((B, n))
     return out

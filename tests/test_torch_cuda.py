@@ -422,3 +422,18 @@ def test_pusch_with_uci_on_card_matches_cpu(cuda_device):
     m_cpu = control.phich_decode(cell, grid, 6, group, nseq, device="cpu")
     assert m_gpu.device.type == "cuda" and float(m_gpu) < 0 and float(m_cpu) < 0
     torch.testing.assert_close(m_gpu.cpu(), m_cpu, rtol=1e-5, atol=1e-6)
+
+
+def test_ota_attach_on_card_matches_cpu(cuda_device):
+    """A 15 PRB attach with the UE and the eNB emulator on the card gives the
+    CPU run's attach TTI and eNB event list, through the r2max and Viterbi
+    kernels (``profile_chain.ota_attach``: noise 0.01 from default_rng(0))."""
+    from srsue_tpu_torch.kernels import viterbi
+    from srsue_tpu_torch.profile_chain import ota_attach
+
+    before = (bcjr.launches["r2max"], viterbi.launches)
+    gpu = ota_attach(cuda_device, 15)
+    launched = (bcjr.launches["r2max"] - before[0], viterbi.launches - before[1])
+    cpu = ota_attach("cpu", 15)
+    assert gpu == cpu
+    assert launched[0] > 0 and launched[1] > 0
