@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (srsue_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout; one GPU, nvcc
+    python3 chip_smoke.py              # from the root of a checkout; one GPU, nvcc
+    python3 chip_smoke.py --world N    # phase 2 at the sharded shapes and phase
+                                       # 16's sharded paths on N GPUs over NCCL
 
 Phases, each of which fails the run:
   1. environment: card, power limit, torch/CUDA versions; builds the CUDA
@@ -88,7 +90,25 @@ Phases, each of which fails the run:
      EnbPhy.receive_ul (least, median, largest), the path's launches and
      Phy.get_metrics(). Every r2max and Viterbi launch of the path ran at a
      shape that phases 2 and 8 held against the twins (the emulator's grant
-     profile: DL MCS 6 over 4/10/25/100 PRB, UL 4 PRB at MCS 4).
+     profile: DL MCS 6 over 4/10/25/100 PRB, UL 4 PRB at MCS 4);
+ 16. the sharded paths (srsue_tpu_torch/parallel: one process per rank,
+     spawned by mesh.launch, NCCL on the card) and the tools: (a)
+     entry.dryrun_multichip(1); (b) shard_decode at the flagship, B=256 at
+     26 dB: 256/256 bit-exact, n_ok 256 from the all_reduce, payload, tb_ok
+     and iters = entry's chain; (c) the window-sharded turbo decoder on the
+     flagship's blocks (3,328 x K=5824, W=91) and on 256 blocks of K=6144 at
+     tests/test_distributed_dsp.py's noise: hard, iters, ok =
+     turbo.decode(early_exit=False, window=64) exactly, 16 r2max launches;
+     (d) the time-sharded front end on 10 subframes of 20 MHz, with a CFO
+     and with decimation to 6 PRB, against the unsharded front end; (e)
+     (b) and (c) at world 2 on the one card over gloo with CUDA tensors; (f)
+     sweep_pdsch at 6 PRB MCS 5 (card = CPU, at most one borderline TB) and
+     at full width around MCS 28's waterfall; (g) one entry call under
+     utils.trace.ProfilerTrace with an annotate span (the Chrome trace
+     names the r2max kernel and the span, no errors) and a LayerLog line;
+     (h) utils.native built into build/native/, NativeFileRadio = FileRadio
+     and the txq's in-order commit, native/ unchanged. The ranks return
+     their kernel counters; every r2max launch ran at a shape phase 2 held.
 
 Prints the kernels' JSON record (time between CUDA events around repeated
 calls, the kernel's own device time by torch.profiler, plain twin's time,
@@ -160,6 +180,20 @@ VITERBI_SHAPES = (  # (label, hypotheses, n): the first is the flagship's
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call of `reps` calls after one more, on the host's clock
+    around work ended by a synchronise: the clock ``parallel.ranks.wall_ms``
+    times the sharded paths with, so that the unsharded path beside them is
+    read on the same clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -250,11 +284,12 @@ def half_args(torch, dev, k, lw, blocks):
             rnd(blocks, w, 8, scale=5.0), lw)
 
 
-def phase_kernel(torch, bcjr, dev, cold):
-    """Kernel vs plain twin at the main paths' shapes; `cold` holds the
-    cold-start paths' and the uplink's (B=1: grids far under one wave)."""
+def phase_kernel(torch, bcjr, dev, cold, base=R2MAX_SHAPES):
+    """Kernel vs plain twin at the main paths' shapes (`base`); `cold` holds
+    the other paths' (B=1 and small grids far under one wave, the sharded
+    paths' per-rank shapes)."""
     rows = []
-    for label, k, lw, blocks in R2MAX_SHAPES + cold:
+    for label, k, lw, blocks in base + cold:
         w = k // lw
         args = half_args(torch, dev, k, lw, blocks)
         got = bcjr.bcjr_half_windowed(*args)
@@ -1485,7 +1520,377 @@ def phase_ota(torch, np, bcjr, viterbi, dev, held_r2, held_vit, smi):
     return launches
 
 
+# phase 16: the sharded paths over torch.distributed, the BLER sweep, the
+# profiler wrapper, the layer logger and the native IQ runtime
+SHARD_TURBO_ITERS = 8
+SHARD_K = 6144  # tests/test_distributed_dsp.py's block, B=256: W=96 windows of 64
+SHARD_SIGMA = 10 ** (-1.0 / 20)
+TIMESHARD_SF = 10  # subframes per rank of the 20 MHz stream
+TIMESHARD_CFO = 0.11
+BLER_SMALL_SNRS = (-4.0, 0.0, 4.0, 10.0)  # tests/test_bler.py's grid, 6 subframes a point
+BLER_SMALL_SF = 6
+BLER_FULL_SNRS = (17.0, 17.5, 18.0, 18.5, 19.0)  # MCS 28's waterfall, ~18 dB with ZF
+BLER_FULL_SF = 64
+# (world size, backend) of phase 16's sharded runs with no arguments: world 1
+# over NCCL, then (e) two ranks on the one card over gloo (NCCL refuses two
+# ranks on one GPU); `--world N` runs world N over NCCL on N cards instead
+WORLDS = ((1, "nccl"), (2, "gloo"))
+
+
+def decode_shapes(label, n_prb, mcs, batch):
+    """(label, K, lw, blocks) of each K-group that turbo.decode runs for
+    `batch` TBs of an n_prb, MCS `mcs` grant."""
+    from srsue_tpu_torch.phy import ra, segmentation, turbo
+
+    plan = segmentation.plan(ra.dl_grant(n_prb, mcs).tbs)
+    return tuple((f"{label} K={k}", k, turbo.pick_window(k) or k,
+                  plan.block_ks.count(k) * batch) for k in dict.fromkeys(plan.block_ks))
+
+
+def shard_shapes(worlds):
+    """(label, K, lw, blocks) of every r2max launch phase 16 makes on one
+    rank: dryrun_multichip (per rank 6 PRB MCS 5 at B=2, K=128n in 2
+    windows, one flagship carrier), shard_decode at the flagship (B/n per
+    rank), the sharded turbo decoder at K=5824 (all 3,328 blocks: W=91
+    splits over 1, 7, 13 or 91 ranks only) and K=6144 (W/n of 96 windows
+    per rank), and the sweeps. Phase 2 holds r2max against its twin at
+    these shapes."""
+    out = (decode_shapes("dryrun 6 PRB MCS 5", 6, 5, 2)
+           + (("dryrun sharded turbo K=128n, per rank", 128, 64, 1),)
+           + decode_shapes("dryrun flagship carrier", 100, 28, 1)
+           + decode_shapes("sweep 6 PRB MCS 5", 6, 5, BLER_SMALL_SF)
+           + decode_shapes("sweep 100 PRB MCS 28", 100, 28, BLER_FULL_SF))
+    for n, _ in worlds:
+        out += (decode_shapes(f"shard_decode world {n}, per rank", 100, 28, BATCH // n)
+                + ((f"sharded turbo K={SHARD_K} world {n}, per rank", SHARD_K, 64,
+                    BATCH // n),))
+    return out
+
+
+def turbo_blocks(np, turbo, crcmod, k, b, seed):
+    """b CRC24A blocks of K bits at tests/test_distributed_dsp.py's noise:
+    (LLRs [b, 3, K+4] float32, CRC matrix [K, 24])."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((k, 24), np.uint8)
+    m[:k - 24] = crcmod.crc_matrix(k - 24, "24A")
+    m[k - 24:] = np.eye(24, dtype=np.uint8)
+    msgs = np.stack([crcmod.attach(rng.integers(0, 2, k - 24).astype(np.uint8), "24A")
+                     for _ in range(b)])
+    x = 1.0 - 2.0 * np.stack([turbo.encode(msg) for msg in msgs]).astype(np.float32)
+    x = x + rng.standard_normal(x.shape).astype(np.float32) * SHARD_SIGMA
+    return (2 * x / SHARD_SIGMA ** 2).astype(np.float32), m
+
+
+def tree_state(path) -> dict:
+    """{name: (mtime_ns, size, sha256)} of every file under `path`."""
+    import hashlib
+    from pathlib import Path
+
+    return {str(p.relative_to(path)): (p.stat().st_mtime_ns, p.stat().st_size,
+                                       hashlib.sha256(p.read_bytes()).hexdigest())
+            for p in sorted(Path(path).rglob("*")) if p.is_file()}
+
+
+def phase_shard(torch, np, entry, bcjr, dev, held, worlds):
+    """Phase 16 (a)-(e), at each (world size, backend) of `worlds`:
+    dryrun_multichip(n) (NCCL worlds); then, in one launch of n rank
+    processes, shard_decode, the sharded turbo decoder and the time-sharded
+    front end, each against the port's unsharded path on this process's
+    card. Every r2max launch ran at a shape phase 2 held (the ranks return
+    their kernels' counters and shapes). Returns launches by path."""
+    from srsue_tpu_torch.parallel import mesh, ranks
+    from srsue_tpu_torch.phy import crc as crcmod
+    from srsue_tpu_torch.phy import ofdm, sync, turbo
+    from srsue_tpu_torch.phy.cell import Cell
+
+    tag = "phase 16"
+    held_n = {(b * (k // lw), lw) for k, lw, b in held}
+    by_path = {}
+
+    def ranks_ran(what, outs, want=None):
+        """The ranks' r2max launches, all at shapes phase 2 held; r2max only."""
+        n = [o["launches"]["r2max"] for o in outs]
+        got = {tuple(s) for o in outs for s in o["shapes"]["r2max"]}
+        others = {k: v for o in outs for k, v in o["launches"].items() if k != "r2max" and v}
+        check(all(n) and not others, f"{tag}: {what}: launches {n}, other kernels {others}")
+        check(got <= held_n, f"{tag}: {what}: r2max at (windows, lw) {sorted(got - held_n)}, "
+              f"not held in phase 2")
+        if want is not None:
+            check(n == [want] * len(outs), f"{tag}: {what}: r2max launches {n}, want {want}")
+        by_path[what] = sum(n)
+        return n
+
+    # the inputs and the port's unsharded results on the card
+    cell, codec = entry.flagship(dev)
+    noisy, payloads, _ = entry.make_waveforms(cell, codec, np.random.default_rng(16), BATCH,
+                                              SNR_DB, n_distinct=4)
+    iq = torch.as_tensor(noisy, device=dev)
+    chain = entry.chain(cell, codec, entry.SUBFRAME)
+    want = [x.cpu().numpy() for x in chain(iq)]
+    chain_ms = host_ms(torch, lambda: chain(iq), reps=5)
+    frontend, demap_dematch, _, _ = entry.stages(cell, codec, entry.SUBFRAME)
+    groups = demap_dematch(*frontend(iq))
+    k_flag = codec.block_ks[0]
+    d6, crc6 = turbo_blocks(np, turbo, crcmod, SHARD_K, BATCH, seed=2)
+    blocks = {"flagship": (groups[0].reshape(-1, 3, k_flag + 4), k_flag, codec.blk_crc[k_flag]),
+              f"K={SHARD_K}": (torch.as_tensor(d6, device=dev), SHARD_K, crc6)}
+    del groups
+    unsharded, unsharded_ms = {}, {}
+    for name, (d, k, m) in blocks.items():
+        def dec(d=d, k=k, m=m):
+            return turbo.decode(d, k, SHARD_TURBO_ITERS, m, early_exit=False, window=64)
+        unsharded[name] = [x.cpu().numpy() for x in dec()]
+        unsharded_ms[name] = host_ms(torch, dec, reps=3)
+        check(unsharded[name][2].all(), f"{tag}: the unsharded {name} decode failed a CRC")
+        blocks[name] = (d.cpu().numpy(), k, m)
+
+    def frontend_want(n):
+        """The unsharded front end of n ranks' blocks: CFO with the global
+        index and demod; decimation by 16 to 6 PRB and demod."""
+        x = torch.as_tensor(noisy[:n * TIMESHARD_SF].reshape(-1), device=dev)
+        t = torch.arange(len(x), dtype=torch.float64, device=dev)
+        rot = torch.polar(torch.ones_like(t), -2.0 * np.pi * TIMESHARD_CFO / cell.nfft * t)
+        return {"cfo": ofdm.demodulate(cell, (x * rot.to(torch.complex64))
+                                       .reshape(-1, cell.sf_len)).cpu().numpy(),
+                "decim": ofdm.demodulate(Cell(n_prb=6, cell_id=cell.cell_id), sync.decimate(
+                    x, 16).reshape(-1, 1920)).cpu().numpy()}
+
+    def check_decode(what, outs):
+        got = [np.concatenate([o[key] for o in outs]) for key in ("payload", "tb_ok", "iters")]
+        check(all(o["n_ok"] == BATCH for o in outs), f"{tag}: {what}: n_ok "
+              f"{[o['n_ok'] for o in outs]}, want {BATCH}")
+        check(bool(got[1].all()) and (got[0] == payloads).all(),
+              f"{tag}: {what}: a TB failed or a payload differs")
+        for g, w, name in zip(got, want, ("payload", "tb_ok", "iters")):
+            check(np.array_equal(g, w), f"{tag}: {what}: {name} differs from entry's chain")
+
+    def check_turbo(what, outs, ref):
+        got = (np.concatenate([o["hard"] for o in outs], 1), outs[0]["iters"], outs[0]["ok"])
+        for o in outs:
+            check(np.array_equal(o["iters"], got[1]) and np.array_equal(o["ok"], got[2]),
+                  f"{tag}: {what}: iters or ok differ between ranks")
+        for g, w, name in zip(got, ref, ("hard", "iters", "ok")):
+            check(np.array_equal(g, w), f"{tag}: {what}: {name} differs from turbo.decode")
+
+    for n, backend in worlds:
+        torch.cuda.empty_cache()
+        w = f"world {n}"
+        step = {1: "(a)-(d)", 2: "(e)"}.get(n, f"--world {n}")
+        if backend == "nccl":  # the dryrun, as a user calls it
+            t0 = time.perf_counter()
+            dry = entry.dryrun_multichip(n)
+            r = ranks_ran(f"dryrun_multichip {w}", dry)
+            print(f"{tag}: {step} dryrun_multichip({n}) over NCCL: {dry[0]['carriers']} "
+                  f"carriers, n_ok {dry[0]['n_ok']}, the time shard, the window-sharded turbo "
+                  f"and {n} flagship carrier(s) ok; r2max launches {r} at "
+                  f"{sorted({tuple(x) for o in dry for x in o['shapes']['r2max']})}; "
+                  f"{time.perf_counter() - t0:.2f} s (spawn, NCCL, host vectors)", flush=True)
+        turbos = [name for name, (_, k, _) in blocks.items() if (k // 64) % n == 0]
+        calls = [(ranks.decode, (cell, codec.grant, entry.RNTI, entry.SUBFRAME, 8, noisy),
+                  {"reps": 5})]
+        calls += [(ranks.turbo, (blocks[name][0], blocks[name][1], SHARD_TURBO_ITERS,
+                                 blocks[name][2]), {"reps": 3}) for name in turbos]
+        stream = noisy[:n * TIMESHARD_SF].reshape(-1)
+        calls += [(ranks.frontend, (cell, stream, TIMESHARD_SF, 1, TIMESHARD_CFO), {"reps": 5}),
+                  (ranks.frontend, (cell, stream, TIMESHARD_SF, 16, 0.0), {"reps": 5})]
+        t0 = time.perf_counter()
+        outs = mesh.launch(ranks.steps, n, "cuda", *calls, backend=backend)
+        secs = time.perf_counter() - t0
+        per = list(zip(*outs))  # per step, each rank's result
+        dec_o = per[0]
+        check_decode(f"shard_decode {w}", dec_o)
+        r = ranks_ran(f"shard_decode {w}", dec_o)
+        print(f"{tag}: {step} shard_decode {w} ({backend}), 100 PRB MCS 28, B={BATCH} at "
+              f"{SNR_DB} dB: {BATCH}/{BATCH} TBs bit-exact, n_ok {dec_o[0]['n_ok']} "
+              f"(all_reduce), SNR {dec_o[0]['snr']:.3f} dB; payload, tb_ok and iters = "
+              f"entry's chain; {max(o['ms'] for o in dec_o):.3f} ms/batch against the "
+              f"unsharded chain's {chain_ms:.3f} ms, both on the host's clock around "
+              f"synchronised calls; r2max launches {r}", flush=True)
+        for name, o in zip(turbos, per[1:1 + len(turbos)]):
+            what = f"sharded turbo {name} {w}"
+            check_turbo(what, o, unsharded[name])
+            r = ranks_ran(what, o, want=2 * SHARD_TURBO_ITERS)
+            print(f"{tag}: {step} {what} ({backend}): {len(o[0]['ok'])} blocks, W="
+                  f"{blocks[name][1] // 64} ({blocks[name][1] // 64 // n} per rank), "
+                  f"{SHARD_TURBO_ITERS} masked iterations: hard, iters, ok = turbo.decode("
+                  f"early_exit=False, window=64) exactly; {max(x['ms'] for x in o):.3f} ms "
+                  f"against {unsharded_ms[name]:.3f} ms unsharded, both on the host's clock; "
+                  f"r2max launches {r}", flush=True)
+        fe_want = frontend_want(n)
+        for (what, key, n_prb), o in zip((("decim 1, CFO 0.11", "cfo", 100),
+                                          ("decim 16 (100 -> 6 PRB)", "decim", 6)), per[-2:]):
+            got = np.concatenate([x["grids"] for x in o])
+            ref = fe_want[key]
+            check({x["n_prb"] for x in o} == {n_prb} and got.shape == ref.shape,
+                  f"{tag}: {what}: shape {got.shape}, PRB {[x['n_prb'] for x in o]}")
+            err = float(np.abs(got - ref).max())
+            check(err <= 1e-5 * float(np.abs(ref).max()) + 1e-5,
+                  f"{tag}: sharded_frontend {w} {what}: max|diff| {err:.3g} against the "
+                  f"unsharded front end")
+            print(f"{tag}: {step} sharded_frontend {w} ({backend}), {TIMESHARD_SF} subframes of "
+                  f"20 MHz per rank, {what}: max|diff| {err:.3g} against the unsharded front "
+                  f"end; {max(x['ms'] for x in o):.3f} ms", flush=True)
+        print(f"{tag}: {step} {w}: {len(calls)} paths in one launch of {n} rank process(es): "
+              f"{secs:.2f} s with the spawn and the group's set-up", flush=True)
+    return by_path
+
+
+def phase_tools(torch, np, entry, bcjr, dev, held):
+    """Phase 16 (f)-(h): the BLER sweep on the card (6 PRB = CPU; full width
+    around MCS 28's waterfall), the profiler wrapper around one entry call,
+    a LayerLog line, the native IQ runtime. Returns launches by path."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from srsue_tpu_torch.phy import bler
+    from srsue_tpu_torch.phy.cell import Cell
+    from srsue_tpu_torch.radio import FileRadio
+    from srsue_tpu_torch.radio import native_io
+    from srsue_tpu_torch.utils import logger, native, trace
+
+    tag = "phase 16"
+    held_n = {(b * (k // lw), lw) for k, lw, b in held}
+    by_path = {}
+
+    def sweep(what, cell, mcs, snrs, n_sf, device):
+        zero_counts(bcjr)
+        t0 = time.perf_counter()
+        pts = bler.sweep_pdsch(cell, mcs, list(snrs), n_sf_per_point=n_sf, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if device != "cpu":
+            got = set(bcjr.shapes["r2max"])
+            check(bcjr.launches["r2max"] > 0, f"{tag}: {what}: r2max launches [0]")
+            check(got <= held_n, f"{tag}: {what}: r2max at {sorted(got - held_n)}, not held "
+                  f"in phase 2")
+            by_path[what] = bcjr.launches["r2max"]
+        return pts, secs
+
+    # (f) the sweep: 6 PRB on the card and on the CPU, then full width
+    small = Cell(n_prb=6, cell_id=3)
+    card, secs = sweep("sweep_pdsch 6 PRB", small, 5, BLER_SMALL_SNRS, BLER_SMALL_SF, dev)
+    cpu, _ = sweep("sweep_pdsch 6 PRB on the CPU", small, 5, BLER_SMALL_SNRS, BLER_SMALL_SF,
+                   "cpu")
+    borderline = 0
+    for a, b in zip(card, cpu):
+        if (a.bler, a.mean_iters) == (b.bler, b.mean_iters):
+            continue
+        borderline += 1  # one TB whose CRC outcome turns on a float32 margin
+        check(abs(a.bler - b.bler) * BLER_SMALL_SF <= 1, f"{tag}: (f) {a.snr_db} dB: card "
+              f"{a} against CPU {b}: more than one TB apart")
+        print(f"{tag}: (f) borderline point: card {a}, CPU {b}", flush=True)
+    check(borderline <= 1, f"{tag}: (f) {borderline} points differ between card and CPU")
+    print(f"{tag}: (f) sweep_pdsch 6 PRB MCS 5, {BLER_SMALL_SF} subframes a point: card = CPU "
+          f"on {len(card) - borderline}/{len(card)} points (bler, mean_iters): "
+          + ", ".join(f"{p.snr_db:g} dB {p.bler:.3f}/{p.mean_iters:.3f}" for p in card)
+          + f"; waterfall {bler.waterfall_snr(card)} dB (CPU {bler.waterfall_snr(cpu)}); "
+          f"{secs:.2f} s", flush=True)
+    full, secs = sweep("sweep_pdsch 100 PRB", Cell(n_prb=100, cell_id=entry.CELL_ID), 28,
+                       BLER_FULL_SNRS, BLER_FULL_SF, dev)
+    check(full[0].bler > full[-1].bler, f"{tag}: (f) no waterfall in {full}")
+    print(f"{tag}: (f) sweep_pdsch 100 PRB MCS 28, {BLER_FULL_SF} subframes a point: "
+          + ", ".join(f"{p.snr_db:g} dB BLER {p.bler:.4f} ({p.mean_iters:.3f} it)" for p in full)
+          + f"; waterfall_snr {bler.waterfall_snr(full)} dB; {secs:.2f} s (host TX, noise, "
+          f"card RX)", flush=True)
+
+    # (g) one entry call under the profiler wrapper, with an annotate span
+    fn, (iq,), payloads = entry.entry(dev, batch=8, snr_db=SNR_DB)
+    fn(iq)
+    torch.cuda.synchronize()
+    logdir = Path("build") / "chip_smoke_trace"
+    zero_counts(bcjr)
+    with trace.ProfilerTrace(str(logdir)) as tr:
+        with trace.annotate("chip_smoke.entry"):
+            out = fn(iq)
+            torch.cuda.synchronize()
+    check(tr.errors == [], f"{tag}: (g) profiler errors {tr.errors}")
+    check(bool(out[1].all()), f"{tag}: (g) a TB failed under the profiler")
+    names = {e.get("name", "") for e in json.loads(Path(tr.path).read_text())["traceEvents"]}
+    kern = sorted(n for n in names if "bcjr_half_kernel" in n)
+    check(bool(kern) and "chip_smoke.entry" in names and Path(tr.path).parent == logdir,
+          f"{tag}: (g) {tr.path} names no r2max kernel or no span")
+    by_path["entry under the profiler"] = bcjr.launches["r2max"]
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        log = logger.get_logger("chip_smoke", level="info")
+        logger.step_tti(4321)
+        log.info("phase %d", 16)
+    check("[ 4321] phase 16" in buf.getvalue(), f"{tag}: (g) LayerLog wrote {buf.getvalue()!r}")
+    print(f"{tag}: (g) ProfilerTrace: {tr.path} ({Path(tr.path).stat().st_size} B) "
+          f"names {kern} and the span chip_smoke.entry, errors {tr.errors}; "
+          f"LayerLog: {buf.getvalue().strip()!r}", flush=True)
+
+    # (h) the native IQ runtime: built into build/native/, native/ untouched
+    before = tree_state("native")
+    t0 = time.perf_counter()
+    check(native_io.available(), f"{tag}: (h) native build failed: {native.build_error}")
+    secs = time.perf_counter() - t0
+    check(native.BUILD_DIR.resolve() == (Path("build") / "native").resolve(),
+          f"{tag}: (h) built into {native.BUILD_DIR}")
+    rng = np.random.default_rng(16)
+    srate = Cell(n_prb=entry.N_PRB, cell_id=entry.CELL_ID).srate
+    n_cap = 150_000
+    data = (rng.standard_normal(n_cap) + 1j * rng.standard_normal(n_cap)).astype(np.complex64)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        path = os.path.join(tmp, "cap.iq")
+        data.tofile(path)
+        nat = native_io.NativeFileRadio(path, srate=srate, ring_samples=1 << 16,
+                                        block=8192)
+        ref = FileRadio(path, srate=srate)
+        try:
+            for n in (30_720, 30_720, 100_000):  # the last read runs past the end
+                a, ta = nat.rx_now(n)
+                b, tb = ref.rx_now(n)
+                check(np.array_equal(a, b) and ta == tb, f"{tag}: (h) NativeFileRadio read "
+                      f"differs from FileRadio")
+            underflows = nat.underflows
+            check(underflows >= 1, f"{tag}: (h) no underflow past the end")
+            bursts = [np.full(100, v + 0j, np.complex64) for v in (1, 2, 3)]
+            nat.tx_seq(1, bursts[1], tx_time=250 / nat.srate)
+            held_back = nat.tx_committed
+            nat.tx_seq(0, bursts[0], tx_time=100 / nat.srate)
+            nat.tx_seq(2, bursts[2], tx_time=200 / nat.srate)
+            stream, t0s = nat.tx_stream()
+            check(held_back == 0 and nat.tx_committed == 3 and nat.tx_late == 1 and t0s == 100
+                  and np.array_equal(stream[150:250], bursts[1]),
+                  f"{tag}: (h) the txq did not commit in order")
+        finally:
+            nat.close()
+    check(tree_state("native") == before, f"{tag}: (h) native/ changed")
+    print(f"{tag}: (h) native: built {native._LIB_PATH} in {secs:.2f} s; NativeFileRadio = "
+          f"FileRadio over a {n_cap}-sample capture and past its end, underflows "
+          f"{underflows}; txq committed 3 in "
+          f"order, 1 late; native/ unchanged", flush=True)
+    return by_path
+
+
+def main_world(torch, np, entry, bcjr, dev, n: int, smi) -> int:
+    """`--world N`: phase 2 at the sharded paths' shapes, then phase 16's
+    sharded paths at world N over NCCL, one rank per card."""
+    check(torch.cuda.device_count() >= n, f"--world {n}: {torch.cuda.device_count()} cards")
+    worlds = ((n, "nccl"),)
+    shapes = tuple({sh[1:]: sh for sh in shard_shapes(worlds)}.values())
+    phase_kernel(torch, bcjr, dev, shapes, base=())
+    launches = phase_shard(torch, np, entry, bcjr, dev, {sh[1:] for sh in shapes}, worlds)
+    print(json.dumps({"launches_by_path": launches}), flush=True)
+    for line in smi:
+        print(line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
+    world = 0
+    if sys.argv[1:2] == ["--world"]:
+        world = int(sys.argv[2])
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--world N]", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -1511,6 +1916,8 @@ def main() -> int:
           f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}", flush=True)
     lib = build.load()
     print(f"phase 1: built {lib.path.name} in {lib.build_seconds:.2f} s", flush=True)
+    if world:
+        return main_world(torch, np, entry, bcjr, dev, world, smi)
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line or line.startswith("=="):
             print(f"phase 1: ptxas {line.strip()}", flush=True)
@@ -1540,7 +1947,7 @@ def main() -> int:
     extra += tuple(sh for sh in ul_shapes(rx) if sh[1:] not in held)
     held |= {sh[1:] for sh in extra}
     ota = {p: ota_shapes(p) for p in (1, 2)}
-    for sh in ota[1][0] + ota[2][0]:
+    for sh in ota[1][0] + ota[2][0] + shard_shapes(WORLDS):
         if sh[1:] not in held:
             extra += (sh,)
             held.add(sh[1:])
@@ -1578,6 +1985,8 @@ def main() -> int:
     tm2 = phase_tm2(torch, rx, bcjr, viterbi, dev, variant_ms["fused"])
     ul_launches = phase_uplink(torch, np, rx, bcjr, viterbi, dev, held)
     ota_launches = phase_ota(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
+    shard_launches = phase_shard(torch, np, entry, bcjr, dev, held, WORLDS)
+    shard_launches.update(phase_tools(torch, np, entry, bcjr, dev, held))
 
     flag = rows[0]
     kernels = [{
@@ -1594,7 +2003,7 @@ def main() -> int:
                              "cold start 2 ports": cold2["r2max"],
                              "tm2 early exit": tm2["r2max"],
                              "pusch early exit": ul_launches,
-                             "ue_ota": ota_launches["r2max"]}}]
+                             "ue_ota": ota_launches["r2max"], **shard_launches}}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": new_launches[name], **new[name],

@@ -17,7 +17,10 @@ names the reference file.
   host protocol stack, and ``ue.Ue`` that wires it to a ``Phy``;
 * ``enb``     -- the eNB emulator (``enb.phy.EnbPhy`` over ``enb.stack``)
   that a UE attaches to over the air;
-* ``radio``   -- the IQ streams a ``Receiver`` reads;
+* ``radio``   -- the IQ streams a ``Receiver`` reads (and the native
+  prefetching reader, ``radio.native_io``);
+* ``parallel`` -- sharding over ``torch.distributed``: carriers, time
+  blocks, turbo windows, one spawned process per rank (``mesh.launch``);
 * ``kernels`` -- hand-written CUDA kernels (sources in ``csrc/``), their
   wrappers and plain PyTorch twins; built with nvcc at first CUDA use;
 * ``entry``   -- the main path (``entry()``), the 20 MHz MCS 28 chain;
@@ -27,7 +30,8 @@ names the reference file.
 Every function takes its device from its tensors or an explicit
 ``device`` argument. The entry points (``entry.entry``, ``rx.make_rx``,
 ``rx.make_tm2_rx``, ``PdschCodec``, ``pdsch.codec``, ``UeDl``, ``Receiver``,
-``PuschCodec``, ``Phy``, ``EnbPhy``) run on the card unless given
+``PuschCodec``, ``Phy``, ``EnbPhy``, ``mesh.launch``, ``dryrun_multichip``,
+``bler.sweep_pdsch``) run on the card unless given
 ``device="cpu"``; CPU tensors run the plain twins of the kernels.
 """
 

@@ -5,6 +5,10 @@ estimate -> ZF -> PDSCH extract / demap / descramble -> rate dematch ->
 turbo decode (8 iterations: CRC early exit, all masked iterations, or
 forced) -> TB CRC, batched over subframes. Configuration: 100 PRB SISO, cell 42,
 subframe 6, MCS 28 (64QAM, TBS 75376, 13 code blocks of K=5824).
+
+``dryrun_multichip(n)`` is the counterpart of
+``__graft_entry__.dryrun_multichip``: one step of each sharded path on `n`
+ranks (``parallel``).
 """
 
 from __future__ import annotations
@@ -12,9 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .phy import chest, enb_tx, equalize, ofdm, ra
+from .phy import enb_tx, ra
 from .phy.cell import Cell
-from .phy.pdsch import PdschCodec
+from .phy.pdsch import PdschCodec, equalized
 
 N_PRB, CELL_ID, SUBFRAME, MCS, RNTI = 100, 42, 6, 28, 0x1234
 
@@ -25,9 +29,7 @@ def stages(cell: Cell, codec: PdschCodec, subframe: int):
     demap + dematch, turbo decode, TB CRC."""
 
     def frontend(iq: torch.Tensor):
-        grid = ofdm.demodulate(cell, iq)
-        h, nvar, _ = chest.estimate(cell, grid, subframe, port=0)
-        return equalize.zf(codec.extract_re(grid), codec.extract_re(h), nvar)
+        return equalized(cell, codec, subframe, iq)[:2]
 
     def demap_dematch(x_eq: torch.Tensor, nv_eff: torch.Tensor):
         return codec.dematch(codec.demap_llrs(x_eq, nv_eff))
@@ -64,8 +66,10 @@ def make_waveforms(cell: Cell, codec: PdschCodec, rng: np.random.Generator,
                    batch: int, snr_db: float, n_distinct: int = 1):
     """Host test vectors: `n_distinct` random transport blocks, tiled over
     `batch` subframes, each with its own AWGN. Returns (noisy [batch,
-    sf_len] complex64, payloads [batch, tbs] uint8). With batch = 1 this
-    draws exactly what ``__graft_entry__.entry()`` draws from the same rng."""
+    sf_len] complex64, payloads [batch, tbs] uint8, clean [batch, sf_len]).
+    With batch = 1 this draws exactly what ``__graft_entry__.entry()`` draws
+    from the same rng; with n_distinct = batch, what its
+    ``dryrun_multichip`` draws."""
     tbs = codec.grant.tbs
     pls = [rng.integers(0, 2, tbs).astype(np.uint8) for _ in range(n_distinct)]
     tds = np.stack([enb_tx.to_waveform(cell, enb_tx.build_pdsch_subframe(cell, codec, p))[0]
@@ -73,7 +77,7 @@ def make_waveforms(cell: Cell, codec: PdschCodec, rng: np.random.Generator,
     p_sig = float(np.mean(np.abs(tds) ** 2)) * cell.nfft / cell.n_sc
     sel = np.arange(batch) % n_distinct
     noisy, _ = enb_tx.awgn(rng, tds[sel], snr_db, signal_power=p_sig)
-    return noisy, np.stack(pls)[sel]
+    return noisy, np.stack(pls)[sel], tds[sel]
 
 
 def entry(device: str | torch.device = "cuda", batch: int = 1,
@@ -82,7 +86,28 @@ def entry(device: str | torch.device = "cuda", batch: int = 1,
     """(fn, (iq,), payloads): the flagship step, its input on `device` and
     the transmitted payloads [batch, tbs] (numpy) to check it against."""
     cell, codec = flagship(device, early_exit, kernel, forced)
-    noisy, payloads = make_waveforms(cell, codec, np.random.default_rng(seed),
-                                     batch, snr_db, n_distinct)
+    noisy, payloads, _ = make_waveforms(cell, codec, np.random.default_rng(seed),
+                                        batch, snr_db, n_distinct)
     iq = torch.as_tensor(noisy, device=codec.device)
     return chain(cell, codec, SUBFRAME), (iq,), payloads
+
+
+def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda") -> list[dict]:
+    """One step of every sharded path on `n_devices` spawned ranks (NCCL, one
+    per GPU, on "cuda"; gloo on "cpu"), with the shapes, draws and checks of
+    ``__graft_entry__.dryrun_multichip``: B = 2n subframes of 1.4 MHz QPSK
+    (6 PRB, MCS 5, subframe 1, 4 turbo iterations, 20 dB) sharded by
+    carrier, every TB passing bit-exact with n_ok == B; a time-sharded front
+    end step; a window-sharded turbo decode of K = 128n; one flagship
+    carrier per rank (100 PRB, MCS 28, 2 masked iterations). Raises on a
+    wrong result; returns each rank's summary and kernel launches."""
+    from .parallel import mesh, ranks
+
+    out = mesh.launch(ranks.dryrun, n_devices, device)
+    r0 = out[0]
+    print(f"dryrun_multichip({n_devices}, {device}): {r0['carriers']} carriers decoded across "
+          f"{n_devices} ranks (all CRC pass, mean SNR {r0['snr']:.1f} dB); time-shard halo "
+          f"frontend ok; window-sharded turbo " + ("ok" if r0["turbo"] else "skipped (K > 6144)")
+          + f"; FLAGSHIP 20 MHz max-TBS ({n_devices} carriers x TBS {r0['tbs_flagship']}, 13 "
+          "codeblocks) sharded decode ok")
+    return out

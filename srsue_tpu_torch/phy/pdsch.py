@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve
-from . import crc, equalize, modulation, ratematch, regrid, segmentation, seq, turbo
+from . import (chest, crc, equalize, modulation, ofdm, ratematch, regrid, segmentation, seq,
+               turbo)
 from .cell import Cell, DlGrant
 
 FILLER_LLR = 1e4  # known-zero filler bits: saturated "bit 0" prior
@@ -226,3 +227,14 @@ def codec(cell: Cell, grant: DlGrant, rnti: int, subframe: int, cfi: int = 1,
     """The cached codec of one configuration (early exit, r2max), as the
     reference's ``codec`` getter, on `device`."""
     return PdschCodec(cell, grant, rnti, subframe, cfi, n_turbo_iters, device=device)
+
+
+def equalized(cell: Cell, codec: PdschCodec, subframe: int, iq: torch.Tensor):
+    """The grant-known receive front end of iq [B, sf_len]: OFDM demod ->
+    CRS channel estimate (port 0) -> PDSCH RE extract -> ZF. Returns
+    (x_eq, nv_eff, nvar, rsrp); ``codec.decode(x_eq, nv_eff)`` finishes the
+    chain (``entry``, ``parallel.shard_decode``, ``bler.sweep_pdsch``)."""
+    grid = ofdm.demodulate(cell, iq)
+    h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
+    x_eq, nv_eff = equalize.zf(codec.extract_re(grid), codec.extract_re(h), nvar)
+    return x_eq, nv_eff, nvar, rsrp

@@ -21,6 +21,7 @@ COPIES = (
     "rlc/__init__.py", "rlc/rlc.py", "rlc/rlc_am.py", "rlc/rlc_um.py", "rlc/rlc_tm.py",
     "pdcp/__init__.py", "pdcp/pdcp.py", "gw/__init__.py", "gw/gw.py",
     "enb/__init__.py", "enb/stack.py", "ue.py", "radio/socket_radio.py",
+    "utils/logger.py", "radio/native_io.py",
 )
 
 

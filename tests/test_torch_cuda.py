@@ -199,7 +199,7 @@ def test_chain_on_card_matches_cpu(cuda_device, n_prb, mcs):
     out = {}
     for dev in ("cpu", cuda_device):
         codec = PdschCodec(cell, grant, 0x1234, 1, device=dev)
-        noisy, payloads = make_waveforms(cell, codec, np.random.default_rng(0), 3, 20.0)
+        noisy, payloads, _ = make_waveforms(cell, codec, np.random.default_rng(0), 3, 20.0)
         out[str(dev)] = [v.cpu() for v in chain(cell, codec, 1)(torch.as_tensor(noisy, device=dev))]
     gpu, cpu = out[str(cuda_device)], out["cpu"]
     assert cpu[1].all() and gpu[1].all()
@@ -437,3 +437,39 @@ def test_ota_attach_on_card_matches_cpu(cuda_device):
     cpu = ota_attach("cpu", 15)
     assert gpu == cpu
     assert launched[0] > 0 and launched[1] > 0
+
+
+def test_sharded_turbo_on_the_card(cuda_device):
+    """The window-sharded decoder on one NCCL rank: the r2max kernel, 2 x
+    n_iters launches counted in the rank, and the unsharded decoder's hard
+    bits, iterations and CRC flags exactly."""
+    from srsue_tpu_torch.parallel import mesh, ranks
+
+    k, b = 1024, 8
+    rng = np.random.default_rng(2)
+    m = np.zeros((k, 24), np.uint8)
+    m[:k - 24] = crcmod.crc_matrix(k - 24, "24A")
+    m[k - 24:] = np.eye(24, dtype=np.uint8)
+    msgs = np.stack([crcmod.attach(rng.integers(0, 2, k - 24).astype(np.uint8), "24A")
+                     for _ in range(b)])
+    x = 1.0 - 2.0 * np.stack([turbo.encode(msg) for msg in msgs]).astype(np.float32)
+    llrs = (2.0 * (x + rng.standard_normal(x.shape).astype(np.float32)) / 1.0).astype(np.float32)
+    (out,) = mesh.launch(ranks.turbo, 1, "cuda", llrs, k, 8, m)
+    assert out["launches"]["r2max"] == 16
+    assert {tuple(s) for s in out["shapes"]["r2max"]} == {(b * k // 64, 64)}
+    hard, iters, ok = turbo.decode(torch.as_tensor(llrs, device=cuda_device), k, 8, m,
+                                   early_exit=False, window=64)
+    np.testing.assert_array_equal(out["hard"], hard.cpu().numpy())
+    np.testing.assert_array_equal(out["iters"], iters.cpu().numpy())
+    np.testing.assert_array_equal(out["ok"], ok.cpu().numpy())
+
+
+def test_sweep_on_the_card_equals_the_cpu(cuda_device):
+    from srsue_tpu_torch.phy import bler
+
+    cell = Cell(n_prb=6, cell_id=3)
+    args = (cell, 5, [-4, 0, 4, 10])
+    card = bler.sweep_pdsch(*args, n_sf_per_point=6, device=cuda_device)
+    cpu = bler.sweep_pdsch(*args, n_sf_per_point=6, device="cpu")
+    assert [p.bler for p in card] == [p.bler for p in cpu]
+    assert [p.mean_iters for p in card] == [p.mean_iters for p in cpu]

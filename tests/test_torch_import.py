@@ -39,7 +39,7 @@ def _run(args, cwd):
 def test_every_module_imports_without_jax():
     res = _run(["-c", _IMPORT_ALL], REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 82  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 92  # every module was imported
     for name in ("phy.sync", "phy.pbch", "phy.receiver", "radio.radio", "mac.rnti", "phy.pusch",
                  "phy.pucch", "phy.uci", "phy.srs", "phy.prach", "phy.powerctrl",
                  "phy.ue_ul_ctrl", "mac.ul_harq", "phy.phy", "mac.mac", "mac.pdu", "mac.demux",
@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax():
                  "rlc.rlc_tm", "pdcp.pdcp", "rrc.rrc", "rrc.uper", "rrc.asn1", "rrc.messages",
                  "rrc.si_sched", "nas.nas", "nas.messages", "usim.usim", "usim.security",
                  "gw.gw", "enb.stack", "enb.phy", "ue", "main", "radio.socket_radio",
-                 "utils.timers", "utils.metrics", "utils.pcap"):
+                 "utils.timers", "utils.metrics", "utils.pcap", "parallel", "parallel.mesh",
+                 "parallel.ranks", "parallel.timeshard", "parallel.turbo_shard", "phy.bler",
+                 "utils.trace", "utils.logger", "utils.native", "radio.native_io"):
         assert f"srsue_tpu_torch.{name} " in res.stdout + " "
 
 
@@ -119,7 +121,9 @@ def _default_device_calls():
     from srsue_tpu_torch.phy.cell import Cell
     from srsue_tpu_torch.phy.ue_dl import UeDl
 
-    from srsue_tpu_torch.phy import control
+    from srsue_tpu_torch import entry
+    from srsue_tpu_torch.parallel import mesh, ranks
+    from srsue_tpu_torch.phy import bler, control
     from srsue_tpu_torch.phy.cell import UlGrant
     from srsue_tpu_torch.phy.pusch import PuschCodec
     from srsue_tpu_torch.phy.receiver import Receiver
@@ -146,12 +150,17 @@ def _default_device_calls():
             cell, np.zeros((cell.n_sym_sf, cell.n_sc), np.complex64), 1, 0, 0),
         "Phy": lambda: Phy(cell),
         "EnbPhy": lambda: EnbPhy(cell, EnbStack(UsimConfig())),
+        "launch": lambda: mesh.launch(ranks.dryrun, 1),
+        "make_mesh": lambda: mesh.make_mesh(0, 1, "file:///nonexistent/rendezvous"),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+        "sweep_pdsch": lambda: bler.sweep_pdsch(cell, 5, [10.0], n_sf_per_point=1),
     }
 
 
 @pytest.mark.parametrize("name", ["make_rx", "PdschCodec", "codec", "UeDl", "UeDl_2port",
                                   "make_tm2_rx", "Receiver", "PuschCodec", "phich_decode",
-                                  "Phy", "EnbPhy"])
+                                  "Phy", "EnbPhy", "launch", "make_mesh", "dryrun_multichip",
+                                  "sweep_pdsch"])
 def test_entry_point_defaults_to_the_card(name):
     """Without a device argument an entry point asks for CUDA, and raises
     on a machine without a GPU."""
