@@ -108,7 +108,25 @@ Phases, each of which fails the run:
      names the r2max kernel and the span, no errors) and a LayerLog line;
      (h) utils.native built into build/native/, NativeFileRadio = FileRadio
      and the txq's in-order commit, native/ unchanged. The ranks return
-     their kernel counters; every r2max launch ran at a shape phase 2 held.
+     their kernel counters; every r2max launch ran at a shape phase 2 held;
+ 17. the UE's mobility and measurement loop over the air on 20 MHz cells
+     (tests/test_ota_handover.py's constants: source PCI 123, target 77,
+     C-RNTI 0x5E11, dedicated preamble 7, noise 0.01): (a) attach on the
+     source, A3 armed (offset 3 dB, hysteresis 1 dB, TTT ms40), the
+     neighbour raised from 0.1 to 2.0: the MeasurementReport, the handover
+     command over the source's PDSCH, the dedicated PRACH detected by the
+     target (a second EnbPhy on the card), its RAR, the Complete on the
+     target's SRB1 and a packet each way there; (b) a page at the UE's
+     paging occasion (P-RNTI searched there only, DCI 1A and 1C sizes); (c)
+     periodic CQI on PUCCH format 2, SRS detected, the pathloss and the
+     PUSCH power tracking a 6 dB channel loss; (d) the subband CQI labels on
+     a two-tap channel; each of (a)-(d) again on the CPU with every event's
+     TTI, PCI, C-RNTI, report and label equal; (e) the slice's new tensor
+     functions (modulate, demodulate_hard, ofdm.modulate, ratematch.match,
+     convcode.encode_torch) card = CPU. Prints the TTIs to the report and to
+     the Complete, Phy.work's host wall ms per TTI with and without a
+     neighbour armed, and the path's r2max and Viterbi launches and shapes,
+     each at a shape phases 2 and 8 held.
 
 Prints the kernels' JSON record (time between CUDA events around repeated
 calls, the kernel's own device time by torch.profiler, plain twin's time,
@@ -1211,16 +1229,17 @@ ERASABLE = (2, 3, 5, 6, 8, 9, 10, 12, 13)
 UL_ERASABLE = (0, 1, 2, 4, 5, 6, 7, 8, 9, 11, 12, 13)
 
 
-def ota_shapes(n_ports: int):
+def ota_shapes(n_ports: int, cell_id: int = OTA_CELL_ID, crnti: int | None = None):
     """The shapes at which the OTA path launches the kernels, from the
     emulator's own grant profile (DL MCS 6 over its allocation buckets, UL 4
     PRB at MCS 4, CFI 2) and the UE's searches: ((label, K, lw, blocks) of
     every r2max decode, one TB per call, of each K-group; (label,
     candidates, n) of every blind search: the common space for SI-, RA- and
     P-RNTI at DCI 1A and 1C sizes, the C-RNTI's UE-specific space of each
-    subframe at DCI 1A and 1 sizes). Phases 2 and 8 hold the kernels
-    against their twins at these shapes; phase 15 checks that it ran no
-    other."""
+    subframe at DCI 1A and 1 sizes; the C-RNTI is the emulator's unless
+    `crnti` names another, as a handover's target gives). Phases 2 and 8
+    hold the kernels against their twins at these shapes; phases 15 and 17
+    check that they ran no other."""
     from srsue_tpu_torch.enb import phy as enb_phy
     from srsue_tpu_torch.enb.stack import EnbStack
     from srsue_tpu_torch.mac import pdu as pdu_mod
@@ -1228,8 +1247,9 @@ def ota_shapes(n_ports: int):
     from srsue_tpu_torch.phy.cell import Cell
     from srsue_tpu_torch.usim.usim import UsimConfig
 
-    cell = Cell(n_prb=OTA_PRB, cell_id=OTA_CELL_ID, n_ports=n_ports)
+    cell = Cell(n_prb=OTA_PRB, cell_id=cell_id, n_ports=n_ports)
     enb = enb_phy.EnbPhy(cell, EnbStack(UsimConfig()), device="cpu")
+    crnti = enb.crnti if crnti is None else crnti
     ul = dci.Dci0(riv=dci.riv_encode(cell.n_prb, 0, 4), mcs=enb._ul_mcs, ndi=True, tpc=1)
     rar = pdu_mod.RarGrant(False, dci.riv_encode(cell.n_prb, 0, 4), enb._ul_mcs, 0, False,
                            False)
@@ -1252,7 +1272,7 @@ def ota_shapes(n_ports: int):
         n_cand = len(control.search_space_candidates(n_cce, 0xFFFF, 0, False))
         vit.setdefault((n_cand, sizes[fmt] + 16), f"ue ota common space DCI {fmt}")
     for sf in range(10):
-        n_cand = len(control.search_space_candidates(n_cce, enb.crnti, sf, True))
+        n_cand = len(control.search_space_candidates(n_cce, crnti, sf, True))
         for fmt in ("1A", "1"):
             vit.setdefault((n_cand, sizes[fmt] + 16), f"ue ota C-RNTI space DCI {fmt}")
     return (tuple((label, *sh) for sh, label in r2.items()),
@@ -1357,16 +1377,17 @@ class OtaLink:
                 return True
         return False
 
-    def packets(self, tag: str):
-        """One UL and one DL user packet, each delivered byte-exact."""
+    def packets(self, tag: str, n: int = OTA_PKT_TTIS):
+        """One UL and one DL user packet, each delivered byte-exact within n
+        TTIs."""
         pkt, dpkt = b"\x45\x00over-the-air!", b"\x45\x00downlink-data"
         n0 = len(self.stack.rx_packets)
         self.ue.gw.backend.inject_ul(pkt)
-        self.until(lambda: len(self.stack.rx_packets) > n0, OTA_PKT_TTIS)
+        self.until(lambda: len(self.stack.rx_packets) > n0, n)
         check(self.stack.rx_packets[n0:] == [pkt], f"{tag}: UL packet {self.stack.rx_packets}")
         m0 = len(self.ue.gw.backend.to_net)
         self.stack.send_user_packet(dpkt)
-        self.until(lambda: len(self.ue.gw.backend.to_net) > m0, OTA_PKT_TTIS)
+        self.until(lambda: len(self.ue.gw.backend.to_net) > m0, n)
         check(list(self.ue.gw.backend.to_net)[m0:] == [dpkt], f"{tag}: DL packet "
               f"{list(self.ue.gw.backend.to_net)}")
         return pkt, dpkt
@@ -1867,6 +1888,384 @@ def phase_tools(torch, np, entry, bcjr, dev, held):
     return by_path
 
 
+# phase 17: the UE's mobility and measurement loop over the air at 100 PRB:
+# the A3-triggered handover, a page, periodic CQI / SRS / power control and
+# the subband CQI labels, each on the card and on the CPU
+MOB_SRC_PCI, MOB_NEW_PCI = OTA_CELL_ID, 77  # tests/test_ota_handover.py:20-23
+MOB_NEW_CRNTI, MOB_DED_PREAMBLE = 0x5E11, 7
+MOB_A3 = {"a3_offset_db": 3.0, "hysteresis_db": 1.0, "ttt": "ms40"}
+MOB_GAINS = (0.1, 2.0)  # the neighbour's amplitude before and after the ramp
+MOB_HO_TTIS = 600
+# TTIs for each packet on the target: the emulator's DCI 1A carries TPC 0
+# (-1 dB) on every DL assignment, as the reference's does (ROADMAP fault 6),
+# so by then the UE's PUCCH ACKs fall under the eNB's threshold and a DL
+# packet needs HARQ drops and RLC retransmissions to get through
+MOB_PKT_TTIS = 240
+MOB_PAGE_T_DRX = 32
+MOB_CQI = (3, 5)  # cqi-pmi-ConfigIndex (period 5, offset 1), PUCCH resource
+MOB_SRS = (11, 4)  # I_SRS (period 10, subframe 4), SRS bandwidth in PRB
+MOB_PATHLOSS_DB = 6.0
+MOB_CTRL_TTIS = 60  # per power phase (tests/test_ulctrl_ota.py)
+MOB_SB_TTIS = 120  # tests/test_subband_cqi.py
+MOB_TAPS = (1.0, 0.0, 0.85)  # the two-tap channel of tests/test_subband_cqi.py
+MOB_CTRL_SEED = 9
+
+
+def mobility_shapes():
+    """phase 17's kernel shapes: phase 15's (the same emulator grant profile
+    on every cell) and the Viterbi at the target's C-RNTI space on cell 77."""
+    r2, vit = ota_shapes(1)
+    r2t, vitt = ota_shapes(1, cell_id=MOB_NEW_PCI, crnti=MOB_NEW_CRNTI)
+    return r2 + r2t, vit + tuple(sh for sh in vitt if sh[1:] not in {v[1:] for v in vit})
+
+
+class MobilityLink(OtaLink):
+    """An OtaLink on the source cell 123 with the neighbour cell 77 beside
+    it: a broadcast-only EnbPhy with its own stack, added to the source's
+    downlink at `gain`, until the handover starts; then the target EnbPhy on
+    the source's stack (a second eNB on `dev`) serves the UE once it has
+    retuned. Logs every eNB and stack event with its TTI, and every change
+    of the UE's PCI and C-RNTI."""
+
+    def __init__(self, torch, np, dev, seed: int = OTA_SEED, cqi_format_k=None):
+        from srsue_tpu_torch.enb.phy import EnbPhy
+        from srsue_tpu_torch.enb.stack import EnbStack
+
+        super().__init__(torch, np, dev, n_ports=1, seed=seed)
+        self.dev, self._enb_cls = dev, EnbPhy
+        self.stack.cqi_format_k = cqi_format_k
+        with self._seeded():
+            self.cell2 = dataclasses.replace(self.cell, cell_id=MOB_NEW_PCI)
+            self.neigh = EnbPhy(self.cell2, EnbStack(self.ue.usim.cfg), device=dev)
+        self.source, self.target = self.enb, None
+        self.gain = 0.0
+        self.armed = []  # per TTI: whether the Phy measured a neighbour
+        self.log = []  # (tti, source, event)
+        self._seen, self._ue_ids = {}, None
+
+    def _record(self, tti):
+        for name, events in (("source", self.source.events), ("stack", self.stack.events),
+                             ("target", self.target.events if self.target else [])):
+            n = self._seen.get(name, 0)
+            self.log += [(tti, name, e) for e in events[n:]]
+            self._seen[name] = len(events)
+        ids = (self.ue.rrc.pci, self.ue.mac.crnti)
+        if ids != self._ue_ids:
+            self.log.append((tti, "ue", ids))
+            self._ue_ids = ids
+
+    def step(self, noise: bool = True, dl_hook=None, ul_hook=None):
+        tti = self.tti
+        if self.target is None and "ho_initiated" in self.stack.events:
+            with self._seeded():
+                self.target = self._enb_cls(self.cell2, self.stack, device=self.dev)
+        if self.target is not None and self.ue.rrc.pci == MOB_NEW_PCI:
+            self.enb = self.target  # the UE has retuned: the target serves it
+
+        def with_neighbour(t, dl):
+            if self.gain and self.enb is not self.target:
+                dl = dl + self.gain * self.neigh.build_dl_subframe(t)
+            return dl if dl_hook is None else dl_hook(t, dl)
+
+        self.armed.append(bool(getattr(self.phy, "_meas_pcis", ())))
+        super().step(noise=noise, dl_hook=with_neighbour, ul_hook=ul_hook)
+        self._record(tti)
+
+    def first(self, event: str):
+        return next((t for t, _, e in self.log if e == event), None)
+
+
+def mobility_handover(torch, np, dev):
+    """(a): attach on the source, arm A3, raise the neighbour from 0.1 to
+    2.0, then the report, the command, the dedicated PRACH, the target's RAR,
+    the Complete and a packet each way on the target. Returns the link."""
+    tag = "phase 17 (a)"
+    link = MobilityLink(torch, np, dev)
+    link.attach()
+    link.gain = MOB_GAINS[0]
+    armed_at = link.tti
+    link.stack.configure_measurements([MOB_NEW_PCI], ho_crnti=MOB_NEW_CRNTI,
+                                      dedicated_preamble=MOB_DED_PREAMBLE, **MOB_A3)
+
+    def done():
+        if link.gain < MOB_GAINS[1] and link.ue.rrc.meas_ids:
+            link.gain = MOB_GAINS[1]  # 6 dB over the serving cell
+        return (link.enb is link.target and link.stack.state == "attached"
+                and link.ue.mac.crnti == MOB_NEW_CRNTI)
+
+    check(link.until(done, MOB_HO_TTIS, noise=True), f"{tag}: no handover in {MOB_HO_TTIS} "
+          f"TTIs on {dev}: {link.log[-20:]}")
+    link.armed_at = armed_at
+    src, tgt = link.source.events, link.target.events
+    check(f"a3_report_pci{MOB_NEW_PCI}" in link.stack.events and link.stack.meas_reports,
+          f"{tag}: no MeasurementReport decoded: {link.stack.events}")
+    check("ho_cmd_dl" in src, f"{tag}: the command did not cross the source: {src[-15:]}")
+    check(f"prach_{MOB_DED_PREAMBLE}" in tgt and "rar_sent" in tgt and "msg3" not in tgt,
+          f"{tag}: the target's RACH: {tgt[:15]}")
+    check("ho_complete" in link.stack.events, f"{tag}: no Complete: {link.stack.events}")
+    check(link.ue.rrc.pci == MOB_NEW_PCI and link.ue.mac.crnti == MOB_NEW_CRNTI
+          and link.ue.rrc.state.name == "CONNECTED" and link.ue.is_attached,
+          f"{tag}: UE on PCI {link.ue.rrc.pci}, C-RNTI {link.ue.mac.crnti:#x}, "
+          f"{link.ue.rrc.state}")
+    link.packets(tag, MOB_PKT_TTIS)
+    return link
+
+
+def mobility_page(torch, np, dev):
+    """(b): the eNB pages the UE's IMSI; the Phy searches P-RNTI (DCI 1A and
+    1C sizes) at the paging occasion only. Returns (the P-RNTI searches, the
+    occasion, the eNB's events)."""
+    from srsue_tpu_torch.mac.rnti import P_RNTI
+    from srsue_tpu_torch.phy import control
+    from srsue_tpu_torch.rrc.si_sched import paging_occasion
+
+    link = OtaLink(torch, np, dev, n_ports=1, seed=1)
+    imsi = link.ue.usim.get_imsi()
+    ue_id = int(imsi) % 1024
+    link.phy.configure_paging(ue_id, t_drx=MOB_PAGE_T_DRX, n_b_t=1.0)
+    link.enb.page(imsi, t_drx=MOB_PAGE_T_DRX)
+    occ = [t for t in range(MOB_PAGE_T_DRX * 10)
+           if paging_occasion(t, ue_id, n_b_t=1.0, t_drx=MOB_PAGE_T_DRX)]
+    check(len(occ) == 1, f"phase 17 (b): paging occasions {occ}")
+    searches = []
+    orig = control.pdcch_blind_decode
+
+    def logged(*a, **kw):
+        hits = orig(*a, **kw)
+        if a[5] == P_RNTI:
+            searches.append((link.tti, a[6], [(int(s), int(lv)) for s, lv, _ in hits]))
+        return hits
+
+    control.pdcch_blind_decode = logged
+    try:
+        link.tti = max(0, occ[0] - 2)
+        link.until(lambda: link.tti > occ[0] + 1, 4, noise=True)
+    finally:
+        control.pdcch_blind_decode = orig
+    check("paging_sent" in link.enb.events and link.ue.rrc.paged
+          and link.ue.nas.paging_pending, f"phase 17 (b): not paged on {dev}: "
+          f"{link.enb.events}")
+    check({t for t, _, _ in searches} == {occ[0]}, f"phase 17 (b): P-RNTI searched at "
+          f"{searches}, the occasion is TTI {occ[0]}")
+    return searches, occ[0], list(link.enb.events)
+
+
+def mobility_ul_ctrl(torch, np, dev):
+    """(c) and (d) on one link (the ConnectionSetup carries subbandCQI(k=1)):
+    (c) after the attach, CQI every 5 ms on PUCCH format 2 and SRS every 10
+    ms at subframe 4 on both ends, 60 TTIs clear, then 60 TTIs 6 dB down
+    both ways; (d) CQI with the subband format on a two-tap channel for 120
+    TTIs. Returns the readings of both."""
+    from srsue_tpu_torch.phy import ra, srs as srsmod, ue_ul_ctrl
+
+    tag = "phase 17"
+    link = MobilityLink(torch, np, dev, seed=MOB_CTRL_SEED, cqi_format_k=1)
+    link.attach()
+    phy, enb = link.phy, link.enb
+    check(phy.ul_ctrl.cfg.cqi_subband_k == 1 and enb.cqi_cfg is not None
+          and enb.cqi_cfg[2] == 1, f"{tag} (d): the subband format did not reach the UE: "
+          f"{phy.ul_ctrl.cfg}, {enb.cqi_cfg}")
+    phy.configure_cqi(*MOB_CQI)
+    phy.configure_srs(*MOB_SRS)
+    enb.cqi_cfg, enb.srs_cfg = (*MOB_CQI, None), MOB_SRS
+    enb.cqi_reports.clear()
+    g = 10 ** (-MOB_PATHLOSS_DB / 20)
+    phr_before = phy.get_headroom_db()
+    pusch_p = {"clear": [], "atten": []}
+    for phase, atten in (("clear", 1.0), ("atten", g)):
+        def ul_hook(tti, ul, _phase=phase, _atten=atten):
+            if ul is not None and phy._phich_wait.get(tti + 4) == tti:
+                pusch_p[_phase].append(float(np.mean(np.abs(ul) ** 2)))
+            return None if ul is None else ul * _atten
+
+        link.until(lambda: False, MOB_CTRL_TTIS, noise=False,
+                   dl_hook=lambda t, dl, _atten=atten: dl * _atten, ul_hook=ul_hook)
+    period, offset = ue_ul_ctrl.cqi_period_offset(MOB_CQI[0])
+    reports = list(enb.cqi_reports)
+    expect = ra.cqi_from_snr(phy.ul_ctrl.last_snr_db)
+    check(len(reports) > 3 and phy.metrics["cqi_tx"] >= len(reports)
+          and all(t % period == offset and abs(c - expect) <= 3 for t, c in reports),
+          f"{tag} (c): CQI reports {reports} (expected about {expect} at TTIs {offset} mod "
+          f"{period})")
+    srs = list(enb.srs_detects)
+    check(srs and phy.metrics["srs_tx"] >= 1 and all(
+        srsmod.ue_srs_subframe(MOB_SRS[0], t) for t, _ in srs), f"{tag} (c): SRS {srs}")
+    alpha = phy.ul_power.cfg.alpha
+    drop = phr_before - phy.get_headroom_db()
+    gain_db = (10 * np.log10(np.mean(pusch_p["atten"][-2:]) / np.mean(pusch_p["clear"][-2:]))
+               if min(len(v) for v in pusch_p.values()) >= 2 else None)
+    check(abs(phy.pathloss_db - MOB_PATHLOSS_DB) < 1.5
+          and alpha * MOB_PATHLOSS_DB - 1.5 < drop < MOB_PATHLOSS_DB + 1.5
+          and (gain_db is None or alpha * MOB_PATHLOSS_DB - 1.5 < gain_db
+               < MOB_PATHLOSS_DB + 1.5), f"{tag} (c): pathloss {phy.pathloss_db:.2f} dB, "
+          f"headroom drop {drop:.2f} dB, PUSCH power up {gain_db} dB (alpha {alpha})")
+    ctrl = {"cqi": reports, "srs": srs, "pathloss_db": phy.pathloss_db, "phr_drop_db": drop,
+            "pusch_gain_db": gain_db, "alpha": alpha}
+
+    # (d) subband CQI on the two-tap channel
+    phy.configure_cqi(*MOB_CQI, subband_k=1)
+    enb.cqi_cfg = (*MOB_CQI, 1)
+    enb.cqi_reports.clear()
+    taps = np.asarray(MOB_TAPS, np.complex64)
+    nfft, half = link.cell.nfft, link.cell.n_sc // 2
+    gain_sc = np.abs(np.fft.fft(taps, nfft)[np.r_[nfft - half:nfft, 1:half + 1]]) ** 2
+    k_sc = 12 * ue_ul_ctrl.subband_geometry(link.cell.n_prb)[0]
+    n_sb = ue_ul_ctrl.subband_count(link.cell.n_prb)
+    exp_sb = [float(gain_sc[s * k_sc:(s + 1) * k_sc].mean()) for s in range(n_sb)]
+    exp_label = {}
+    for j in range(ue_ul_ctrl.subband_geometry(link.cell.n_prb)[1]):
+        lo, hi = ue_ul_ctrl.part_subbands(link.cell.n_prb, j)
+        exp_label[j] = int(np.argmax(exp_sb[lo:hi]))
+    link.until(lambda: False, MOB_SB_TTIS, noise=False, dl_hook=lambda t, dl: np.convolve(
+        dl, taps)[:len(dl)].astype(np.complex64))
+    sb = [r for r in enb.cqi_reports if len(r) == 5 and r[1] == "sb"]
+    wb = [r for r in enb.cqi_reports if len(r) == 2]
+    check(wb and {r[2] for r in sb} == set(exp_label), f"{tag} (d): reports "
+          f"{enb.cqi_reports}")
+    check(all(lab == exp_label[j] for _, _, j, lab, _ in sb), f"{tag} (d): labels "
+          f"{[(r[2], r[3]) for r in sb]}, the channel's strong subbands {exp_label}")
+    check(max(r[4] for r in sb) >= max(c for _, c in wb), f"{tag} (d): subband CQI "
+          f"{[r[4] for r in sb]} under the wideband {[c for _, c in wb]}")
+    sub = {"reports": list(enb.cqi_reports), "labels": exp_label,
+           "snr_db": [float(v) for v in phy.ul_ctrl.subband_snr_db]}
+    return ctrl, sub, link
+
+
+def device_functions(torch, np, dev):
+    """(e): the slice's new functions on tensors, on the card and on the
+    CPU, at the full-width cell's shapes: the mapper and the hard demapper
+    at every order, the OFDM modulator, the rate matcher's gather and the
+    batched tail-biting encoder. Returns {name: max|card - CPU|}."""
+    from srsue_tpu_torch.phy import convcode, modulation, ofdm, ratematch, turbo
+    from srsue_tpu_torch.phy.cell import Cell
+
+    cell = Cell(n_prb=OTA_PRB, cell_id=OTA_CELL_ID)
+    rng = np.random.default_rng(17)
+    out = {}
+    for m in (1, 2, 4, 6):
+        bits = torch.as_tensor(rng.integers(0, 2, (4, 1200 * m), dtype=np.uint8))
+        sym_c = modulation.modulate(bits, m)
+        check(torch.equal(modulation.modulate(bits.to(dev), m).cpu(), sym_c),
+              f"phase 17 (e): modulate Qm={m} card != CPU")
+        out[f"modulate Qm={m}"] = 0.0
+        if m > 1:
+            noisy = sym_c + 0.3 * torch.randn(sym_c.shape, dtype=torch.complex64)
+            hard_d = modulation.demodulate_hard(noisy.to(dev), m).cpu()
+            check(torch.equal(hard_d, modulation.demodulate_hard(noisy, m)),
+                  f"phase 17 (e): demodulate_hard Qm={m} card != CPU")
+            out[f"demodulate_hard Qm={m}"] = 0.0
+    grid = torch.as_tensor((rng.standard_normal((2, cell.n_sym_sf, cell.n_sc)) + 1j *
+                            rng.standard_normal((2, cell.n_sym_sf, cell.n_sc))).astype(
+        np.complex64))
+    td_d, td_c = ofdm.modulate(cell, grid.to(dev)).cpu(), ofdm.modulate(cell, grid)
+    check(float((td_d - td_c).abs().max()) <= 1e-5 * float(td_c.abs().max()),
+          "phase 17 (e): ofdm.modulate card != CPU within 1e-5 of the peak")
+    out["ofdm.modulate (relative to the peak)"] = float(
+        (td_d - td_c).abs().max() / td_c.abs().max())
+    k = 5824
+    d = torch.as_tensor(turbo.encode(rng.integers(0, 2, k).astype(np.uint8)).reshape(-1)
+                        .astype(np.float32))
+    idx = ratematch.turbo_rm_indices(k + 4, 3 * 5824 // 2, 2)
+    check(torch.equal(ratematch.match(d.to(dev), idx).cpu(), ratematch.match(d, idx)),
+          "phase 17 (e): ratematch.match card != CPU")
+    out["ratematch.match"] = 0.0
+    msgs = torch.as_tensor(rng.integers(0, 2, (4608, 44), dtype=np.uint8))
+    check(torch.equal(convcode.encode_torch(msgs.to(dev)).cpu(), convcode.encode_torch(msgs)),
+          "phase 17 (e): convcode.encode_torch card != CPU")
+    out["convcode.encode_torch"] = 0.0
+    return out
+
+
+def phase_mobility(torch, np, bcjr, viterbi, dev, held_r2, held_vit, smi):
+    """Phase 17: (a) the A3-triggered handover onto PCI 77 and a packet each
+    way on the target; (b) a page at the paging occasion; (c) periodic CQI,
+    SRS and the power tracking the pathloss; (d) the subband CQI labels on a
+    two-tap channel; each on the card and again on the CPU, every decision
+    equal; (e) the new device functions on the card = on the CPU. Every
+    r2max and Viterbi launch at a shape phases 2 and 8 held. Returns the
+    path's launches."""
+    tag = "phase 17"
+    held_n = {(b * (k // lw), lw) for k, lw, b in held_r2}
+    zero_all(bcjr, viterbi)
+
+    def shapes_held(what):
+        got_r2, got_vit = set(bcjr.shapes["r2max"]), set(viterbi.shapes)
+        check(got_r2 <= held_n, f"{tag} {what}: r2max at (windows, lw) "
+              f"{sorted(got_r2 - held_n)}, not held in phase 2")
+        check(got_vit <= set(held_vit), f"{tag} {what}: Viterbi at (hypotheses, n) "
+              f"{sorted(got_vit - set(held_vit))}, not held in phase 8")
+        return got_r2, got_vit
+
+    t0 = time.perf_counter()
+    ho = mobility_handover(torch, np, dev)
+    ho_s = time.perf_counter() - t0
+    page = mobility_page(torch, np, dev)
+    ctrl, sub, ctrl_link = mobility_ul_ctrl(torch, np, dev)
+    torch.cuda.synchronize()
+    launches = {"r2max": bcjr.launches["r2max"], "viterbi": viterbi.launches}
+    others = {k: v for k, v in bcjr.launches.items() if k != "r2max" and v}
+    check(launches["r2max"] > 0 and launches["viterbi"] > 0 and not others,
+          f"{tag}: launches {launches}, other BCJR instances {others}")
+    got_r2, got_vit = shapes_held("(a-d)")
+
+    t0 = time.perf_counter()
+    ho_cpu = mobility_handover(torch, np, "cpu")
+    check(ho_cpu.log == ho.log, f"{tag} (a): the CPU's events differ from the card's: "
+          f"{[e for e in ho_cpu.log if e not in ho.log][:8]} vs "
+          f"{[e for e in ho.log if e not in ho_cpu.log][:8]}")
+    page_cpu = mobility_page(torch, np, "cpu")
+    check(page_cpu == page, f"{tag} (b): CPU {page_cpu} vs card {page}")
+    ctrl_cpu, sub_cpu, _ = mobility_ul_ctrl(torch, np, "cpu")
+    # the decisions exactly (CQI values, SRS detected at which TTIs); the SRS
+    # correlation metric within float32 rounding
+    check(ctrl_cpu["cqi"] == ctrl["cqi"], f"{tag} (c): CQI CPU {ctrl_cpu['cqi']} vs card "
+          f"{ctrl['cqi']}")
+    check([t for t, _ in ctrl_cpu["srs"]] == [t for t, _ in ctrl["srs"]] and np.allclose(
+        [m for _, m in ctrl_cpu["srs"]], [m for _, m in ctrl["srs"]], atol=1e-5),
+        f"{tag} (c): SRS CPU {ctrl_cpu['srs']} vs card {ctrl['srs']}")
+    check(abs(ctrl_cpu["pathloss_db"] - ctrl["pathloss_db"]) < 1e-3,
+          f"{tag} (c): pathloss CPU {ctrl_cpu['pathloss_db']} vs card {ctrl['pathloss_db']}")
+    check(sub_cpu["reports"] == sub["reports"] and np.allclose(
+        sub_cpu["snr_db"], sub["snr_db"], atol=1e-3), f"{tag} (d): CPU {sub_cpu} vs card {sub}")
+    cpu_s = time.perf_counter() - t0
+    new = device_functions(torch, np, dev)
+
+    rep, comp = ho.first(f"a3_report_pci{MOB_NEW_PCI}"), ho.first("ho_complete")
+    print(f"{tag}: (a) 100 PRB source cell {MOB_SRC_PCI} + neighbour {MOB_NEW_PCI}, noise "
+          f"{OTA_NOISE}: attached, A3 armed at TTI {ho.armed_at} (offset 3 dB, hysteresis "
+          f"1 dB, TTT ms40; the neighbour raised from {MOB_GAINS[0]} to {MOB_GAINS[1]}), the "
+          f"MeasurementReport at TTI {rep} ({rep - ho.armed_at} TTIs after arming), the "
+          f"command over the source's PDSCH, PRACH preamble {MOB_DED_PREAMBLE} detected by the "
+          f"target, its RAR, the Complete at TTI {comp} ({comp - ho.armed_at} TTIs after "
+          f"arming) on C-RNTI {MOB_NEW_CRNTI:#x}; a packet each way on the target; "
+          f"{ho.tti} TTIs in {ho_s:.2f} s", flush=True)
+    print(f"{tag}: (b) paged at the occasion TTI {page[1]} (T=32): P-RNTI searched "
+          f"there only, (DCI bits, hits) {[s[1:] for s in page[0]]}; eNB events {page[2]}",
+          flush=True)
+    print(f"{tag}: (c) CQI {ctrl['cqi']}, SRS detected at TTIs "
+          f"{[t for t, _ in ctrl['srs']]}; pathloss {ctrl['pathloss_db']:.3f} dB (6 dB "
+          f"channel), headroom down {ctrl['phr_drop_db']:.3f} dB, PUSCH power up "
+          f"{ctrl['pusch_gain_db']} dB (alpha {ctrl['alpha']})", flush=True)
+    print(f"{tag}: (d) subband reports {sub['reports']}; labels {sub['labels']} = the "
+          f"channel's strong subbands; subband SNR {[round(v, 3) for v in sub['snr_db']]} dB",
+          flush=True)
+    print(f"{tag}: (a-d) card = CPU: {len(ho.log)} handover events with their TTIs, PCIs "
+          f"and C-RNTIs, the page, {len(ctrl['cqi'])} CQI and {len(ctrl['srs'])} SRS reports, "
+          f"the pathloss, {len(sub['reports'])} subband reports ({cpu_s:.2f} s on the CPU)",
+          flush=True)
+    print(f"{tag}: (e) card = CPU: " + ", ".join(f"{k} {v:.3g}" for k, v in new.items()),
+          flush=True)
+    on = [ms for ms, a in zip(ho.work_ms, ho.armed) if a]
+    off = [ms for ms, a in zip(ho.work_ms, ho.armed) if not a]
+    print(f"{tag}: {smi}: Phy.work host wall ms per TTI with a neighbour armed ({len(on)} "
+          f"TTIs): {spread(on)}; without ({len(off)} TTIs): {spread(off)}; subband CQI "
+          f"link: {spread(ctrl_link.work_ms)}", flush=True)
+    print(f"{tag}: {smi}: launches on the path (a-d): r2max {launches['r2max']} at (windows, "
+          f"lw) {sorted(got_r2)}, Viterbi {launches['viterbi']} at (hypotheses, n) "
+          f"{sorted(got_vit)}", flush=True)
+    return launches
+
+
 def main_world(torch, np, entry, bcjr, dev, n: int, smi) -> int:
     """`--world N`: phase 2 at the sharded paths' shapes, then phase 16's
     sharded paths at world N over NCCL, one rank per card."""
@@ -1947,7 +2346,8 @@ def main() -> int:
     extra += tuple(sh for sh in ul_shapes(rx) if sh[1:] not in held)
     held |= {sh[1:] for sh in extra}
     ota = {p: ota_shapes(p) for p in (1, 2)}
-    for sh in ota[1][0] + ota[2][0] + shard_shapes(WORLDS):
+    mob = mobility_shapes()
+    for sh in ota[1][0] + ota[2][0] + mob[0] + shard_shapes(WORLDS):
         if sh[1:] not in held:
             extra += (sh,)
             held.add(sh[1:])
@@ -1967,7 +2367,7 @@ def main() -> int:
         print(f"phase 7: {line}", flush=True)
     vit_cold = tuple(cold[p][1] for p in (1, 2))
     held_vit = {sh[1:] for sh in VITERBI_SHAPES + vit_cold}
-    for sh in ota[1][1] + ota[2][1]:
+    for sh in ota[1][1] + ota[2][1] + mob[1]:
         if sh[1:] not in held_vit:
             vit_cold += (sh,)
             held_vit.add(sh[1:])
@@ -1987,6 +2387,7 @@ def main() -> int:
     ota_launches = phase_ota(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
     shard_launches = phase_shard(torch, np, entry, bcjr, dev, held, WORLDS)
     shard_launches.update(phase_tools(torch, np, entry, bcjr, dev, held))
+    mob_launches = phase_mobility(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
 
     flag = rows[0]
     kernels = [{
@@ -2003,7 +2404,8 @@ def main() -> int:
                              "cold start 2 ports": cold2["r2max"],
                              "tm2 early exit": tm2["r2max"],
                              "pusch early exit": ul_launches,
-                             "ue_ota": ota_launches["r2max"], **shard_launches}}]
+                             "ue_ota": ota_launches["r2max"],
+                             "ue_mobility": mob_launches["r2max"], **shard_launches}}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": new_launches[name], **new[name],
@@ -2017,7 +2419,8 @@ def main() -> int:
                     "launches_by_path": {"blind chain": vit_launches,
                                          "cold start 1 port": cold1["viterbi"],
                                          "cold start 2 ports": cold2["viterbi"],
-                                         "ue_ota": ota_launches["viterbi"]}})
+                                         "ue_ota": ota_launches["viterbi"],
+                                         "ue_mobility": mob_launches["viterbi"]}})
     for k in kernels:  # no single PyTorch call computes a max-log BCJR or a Viterbi
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -71,6 +71,23 @@ def encode(bits: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+def _encoder_tables(device: torch.device):
+    out_bits = ((1.0 - _tables()[0]) / 2.0).astype(np.uint8)  # [128, 3]
+    return torch.as_tensor(out_bits, device=device)
+
+
+def encode_torch(bits: torch.Tensor) -> torch.Tensor:
+    """The tail-biting encoder on the bits' device, batched: [B, n] {0,1}
+    -> [B, 3, n] uint8, equal to ``encode`` row by row (the register starts
+    with the last 6 bits; word k holds bits k..k-6, indices mod n)."""
+    b = bits.to(torch.int64)
+    n = b.shape[-1]
+    k = torch.arange(n, device=b.device)
+    w = sum(b[..., (k - i) % n] << (6 - i) for i in range(7))
+    return _encoder_tables(b.device)[w].transpose(-1, -2).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
 def _device_tables(device: torch.device):
     out_pm1, _, _, inp_bit = _tables()
     o = torch.as_tensor(out_pm1, device=device)

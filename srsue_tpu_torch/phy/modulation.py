@@ -1,5 +1,6 @@
-"""Constellation mapping (host) and exact max-log soft demapping (36.211
-7.1). Counterpart of ``srsue_tpu/phy/modulation.py``.
+"""Constellation mapping (host numpy and on a tensor's device) and exact
+max-log soft and hard demapping (36.211 7.1). Counterpart of
+``srsue_tpu/phy/modulation.py``.
 
 LLR > 0 favours bit 0 (the descrambler multiplies by the +-1 sequence).
 """
@@ -100,3 +101,23 @@ def demodulate_soft(sym: torch.Tensor, mod_order: int,
     nv = torch.as_tensor(noise_var, dtype=llr.dtype, device=sym.device)
     llr = llr / torch.clamp_min(nv[..., None] if nv.ndim else nv, 1e-9)
     return llr.reshape(sym.shape[:-1] + (-1,))
+
+
+@functools.lru_cache(maxsize=32)
+def _map_tensors(mod_order: int, device: torch.device):
+    pw = torch.as_tensor(1 << np.arange(mod_order - 1, -1, -1), device=device)
+    return torch.as_tensor(constellation(mod_order), device=device), pw
+
+
+def modulate(bits: torch.Tensor, mod_order: int) -> torch.Tensor:
+    """Mapper on the bits' device: [..., n*Qm] {0,1} -> [..., n] complex64
+    (a gather from the constellation table by the Qm-bit word, b0 = MSB)."""
+    tab, pw = _map_tensors(mod_order, bits.device)
+    b = bits.reshape(bits.shape[:-1] + (-1, mod_order)).to(torch.int64)
+    return tab[torch.sum(b * pw, dim=-1)]
+
+
+def demodulate_hard(sym: torch.Tensor, mod_order: int) -> torch.Tensor:
+    """Hard decisions by the sign of the max-log LLRs: bit 1 where the LLR
+    is below 0, so a symbol on a slicer boundary (LLR 0) gives bit 0."""
+    return (demodulate_soft(sym, mod_order) < 0).to(torch.uint8)

@@ -63,7 +63,7 @@ class PdschCodec:
                   for i, k in enumerate(plan.block_ks)]
         # 36.211 6.3.1: c_init = rnti*2^14 + q*2^13 + floor(ns/2)*2^9 + cell_id
         c_init = (rnti << 14) + (subframe << 9) + cell.cell_id
-        scr_pm1 = (1.0 - 2.0 * seq.prs(c_init, g_prime * qm)).astype(np.float32)
+        scr_pm1 = seq.prs_f32(c_init, g_prime * qm)
         blk_crc = {k: blk_crc_matrix(plan, i, k) for i, k in enumerate(plan.block_ks)}
         self._setup(cell, grant, re_idx, rm_idx, scr_pm1, blk_crc,
                     crc.crc_matrix(grant.tbs, "24A"), device, subframe,

@@ -3,8 +3,9 @@
 
 Counterpart of ``srsue_tpu/phy/ratematch.py``. The sub-block interleaver
 and circular-buffer selection are host-precomputed index maps (numpy); on
-the device, dematching is one scatter-add ``w[idx[e]] += llr[e]`` (HARQ
-soft-combining is ``+`` of the buffers). NULL (dummy/filler) positions
+the device, matching is one gather ``e[i] = d[idx[i]]`` and dematching one
+scatter-add ``w[idx[e]] += llr[e]`` (HARQ soft-combining is ``+`` of the
+buffers). NULL (dummy/filler) positions
 never appear in an index map.
 """
 
@@ -108,6 +109,13 @@ def conv_rm_indices(k_stream: int, e: int) -> np.ndarray:
                         for j in range(3)])
     vals = w[w != NULL]
     return np.tile(vals, -(-e // len(vals)))[:e]
+
+
+def match(d_flat: torch.Tensor, idx: np.ndarray | torch.Tensor) -> torch.Tensor:
+    """[..., 3*k_stream] -> [..., E]: the transmit side's gather by a host
+    index table (``turbo_rm_indices``, ``conv_rm_indices``), on the
+    tensor's device."""
+    return d_flat[..., torch.as_tensor(idx, dtype=torch.int64, device=d_flat.device)]
 
 
 def dematch(llrs: torch.Tensor, idx: torch.Tensor, d_len: int) -> torch.Tensor:

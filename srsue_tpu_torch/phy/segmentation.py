@@ -1,5 +1,6 @@
-"""Transport-block CRC attachment and code block segmentation (36.212
-5.1.2), host side. Counterpart of ``srsue_tpu/phy/segmentation.py``."""
+"""Transport-block CRC attachment, code block segmentation and
+desegmentation (36.212 5.1.2), host side. Counterpart of
+``srsue_tpu/phy/segmentation.py``."""
 
 from __future__ import annotations
 
@@ -29,6 +30,11 @@ class SegPlan:
     @property
     def block_ks(self) -> tuple[int, ...]:
         return (self.k_minus,) * self.c_minus + (self.k_plus,) * self.c_plus
+
+    @property
+    def uniform_k(self) -> int:
+        """The largest block size, to which device arrays are padded."""
+        return self.k_plus
 
 
 @functools.lru_cache(maxsize=1024)
@@ -68,3 +74,20 @@ def segment(tb_bits: np.ndarray) -> list[np.ndarray]:
         blocks.append(crc.attach(blk, "24B"))
     assert pos == len(b)
     return blocks
+
+
+def desegment(blocks: list[np.ndarray], tbs: int) -> tuple[np.ndarray, bool]:
+    """Code blocks (hard bits, CRCs attached) -> (TB payload, crc_ok): each
+    block's CRC24B when C > 1, then the TB's CRC24A."""
+    p = plan(tbs)
+    ok = True
+    if p.c == 1:
+        b = blocks[0][p.f:]
+    else:
+        parts = []
+        for i, blk in enumerate(blocks):
+            ok &= crc.check(blk, "24B")
+            parts.append(blk[:-24][p.f if i == 0 else 0:])
+        b = np.concatenate(parts)
+    ok &= crc.check(b, "24A")
+    return b[:-24], bool(ok)

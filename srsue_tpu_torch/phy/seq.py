@@ -63,6 +63,11 @@ def prs(c_init: int, length: int) -> np.ndarray:
     return (x1[NC:] ^ x2[NC:]).astype(np.uint8)
 
 
+def prs_f32(c_init: int, length: int) -> np.ndarray:
+    """The Gold sequence as +1/-1 float32 (LLR descrambling: LLR * s)."""
+    return (1.0 - 2.0 * prs(c_init, length)).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # PSS — 36.211 §6.11.1: length-63 Zadoff-Chu, root u in {25, 29, 34}
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's protocol stack against the reference's.
 
 * The reference's own stack tests (MAC, RLC, PDCP/USIM, RRC codecs, SI
-  scheduling, the hermetic attach, re-establishment, handover) run again on
-  the port's modules: the same scenarios, the same expectations.
+  scheduling, the hermetic attach, re-establishment, handover, paging
+  occasions and PCCH, A3 measurement reporting) run again on the port's
+  modules: the same scenarios, the same expectations.
 * Every MAC scenario of ``tests/test_mac.py`` runs on both packages, and
   every MAC PDU packed or parsed (and every RAR PDU) is byte-equal.
 * The hermetic attach selftest (``main.run_selftest_inline``) of both
@@ -24,7 +25,9 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 SCENARIO_FILES = ("test_mac", "test_rlc", "test_rlc_reseg", "test_pdcp_usim", "test_rrc_uper",
                   "test_si_sched", "test_usim_xor", "test_attach_e2e", "test_reestablish",
-                  "test_handover")
+                  "test_handover", "test_paging", "test_meas_report")
+# the over-the-air scenarios of those files run in tests/test_torch_mobility.py
+OTA_SCENARIOS = ("test_paging_over_the_air", "test_ota_a3_measurement_triggers_handover")
 
 
 def _source(name: str, pkg: str) -> str:
@@ -38,10 +41,10 @@ def _load(name: str, pkg: str) -> dict:
     loaded the same way)."""
     ns = {"__name__": f"_scenarios_{name}_{pkg}"}
     src = _source(name, pkg)
-    for mod, names in re.findall(r"^from (test_\w+) import (.+)$", src, re.M):
+    for mod, names in re.findall(r"^from (?:tests\.)?(test_\w+) import (.+)$", src, re.M):
         helpers = _load(mod, pkg)
         ns.update({n.strip(): helpers[n.strip()] for n in names.split(",")})
-    src = re.sub(r"^from test_\w+ import .+$", "", src, flags=re.M)
+    src = re.sub(r"^from (?:tests\.)?test_\w+ import .+$", "", src, flags=re.M)
     exec(compile(src, f"tests/{name}.py [{pkg}]", "exec"), ns)
     return ns
 
@@ -52,7 +55,7 @@ def _scenarios(name: str) -> list[str]:
             if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")]
 
 
-CASES = [(f, t) for f in SCENARIO_FILES for t in _scenarios(f)]
+CASES = [(f, t) for f in SCENARIO_FILES for t in _scenarios(f) if t not in OTA_SCENARIOS]
 
 
 @pytest.mark.parametrize("name, scenario", CASES, ids=[f"{f}::{t}" for f, t in CASES])

@@ -99,11 +99,22 @@ def test_segmentation_plan_across_tbs():
                 mine.c_minus, mine.f) == (ref.tbs, ref.c, ref.k_plus, ref.k_minus,
                                           ref.c_plus, ref.c_minus, ref.f), tbs
         assert mine.block_ks == ref.block_ks
+        assert mine.uniform_k == ref.uniform_k
     rng = np.random.default_rng(0)
     for tbs in (500, 7736, 14112):
         bits = rng.integers(0, 2, tbs).astype(np.uint8)
-        for a, b in zip(segmentation.segment(bits), ref_seg.segment(bits), strict=True):
+        blocks = segmentation.segment(bits)
+        for a, b in zip(blocks, ref_seg.segment(bits), strict=True):
             np.testing.assert_array_equal(a, b)
+        # desegment, with every block's CRC good and then with each one broken
+        for bad in (None, *range(len(blocks))):
+            got = [b.copy() for b in blocks]
+            if bad is not None:
+                got[bad][-1] ^= 1
+            (mine, ok), (ref, ref_ok) = (segmentation.desegment(got, tbs),
+                                         ref_seg.desegment(got, tbs))
+            np.testing.assert_array_equal(mine, ref)
+            assert ok == ref_ok == (bad is None)
 
 
 def test_qpp_and_trellis_tables():
@@ -352,6 +363,8 @@ def test_seq_copy_and_bits_to_bytes_match_reference():
     for c_init in (0, 1, 0x1234 << 14, (1 << 31) - 1, 2 ** 10 * 7 * 85 + 84):
         for length in (1, 31, 440, 4 * 110, 15000):
             np.testing.assert_array_equal(seq.prs(c_init, length), ref_seq.prs(c_init, length))
+            np.testing.assert_array_equal(seq.prs_f32(c_init, length),
+                                          ref_seq.prs_f32(c_init, length))
     for n_id_2 in range(3):
         np.testing.assert_array_equal(seq.pss_freq(n_id_2), ref_seq.pss_freq(n_id_2))
         for n_id_1 in (0, 29, 30, 167):
