@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (srsue_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout; one GPU, nvcc
-    python3 chip_smoke.py --world N    # phase 2 at the sharded shapes and phase
-                                       # 16's sharded paths on N GPUs over NCCL
+    python3 chip_smoke.py --world N    # phase 2 at the sharded shapes, phase 16's
+                                       # sharded paths on N GPUs over NCCL and,
+                                       # N even, phase 18 (b) as 2 nodes of N/2
 
 Phases, each of which fails the run:
   1. environment: card, power limit, torch/CUDA versions; builds the CUDA
@@ -126,7 +127,22 @@ Phases, each of which fails the run:
      convcode.encode_torch) card = CPU. Prints the TTIs to the report and to
      the Complete, Phy.work's host wall ms per TTI with and without a
      neighbour armed, and the path's r2max and Viterbi launches and shapes,
-     each at a shape phases 2 and 8 held.
+     each at a shape phases 2 and 8 held;
+ 18. (a) ROADMAP fault 7: the softbuffers of every caller whose positions
+     repeat 3 times or more (the PDCCH blind search at 100 PRB with its L=4
+     and L=8 candidates, a 2 PRB MCS 0 PDSCH grant on a 6 PRB cell, a 1 PRB
+     MCS 0 PUSCH grant), B=256 seeded LLRs through each caller's own
+     inverse table on the card and on the CPU: equal bit for bit (and how
+     many values a zero-fill + index_add_ on the card gets wrong); the
+     flagship's dematch timed against that scatter; phase 9's blind-chain
+     runs again with the same decisions and BCJR and Viterbi launches; (b)
+     the multi-host launch: two node processes (python -m
+     srsue_tpu_torch.parallel.multihost) of one gloo rank each on this card
+     over tcp://127.0.0.1 run the reference worker's carrier-sharded decode
+     and window-sharded turbo decoder: both print MULTIHOST_OK, their
+     decisions equal the unsharded decode and turbo decoder on the card and
+     on the CPU, every r2max launch at a shape phase 2 held; prints the
+     launch's seconds and each rank's r2max launches.
 
 Prints the kernels' JSON record (time between CUDA events around repeated
 calls, the kernel's own device time by torch.profiler, plain twin's time,
@@ -586,6 +602,11 @@ def phase_viterbi(torch, np, viterbi, convcode, dev, cold):
     return {"max_abs_err": float(err), **row}
 
 
+# (label, equalizer, make_rx options) of phase 9's blind-chain runs
+BLIND_RUNS = (("zf", "zf", {}), ("mmse", "mmse", {}), ("zf_scalar", "zf_scalar", {}),
+              ("zf forced", "zf", {"forced": True}))
+
+
 def zero_all(bcjr, viterbi) -> None:
     zero_counts(bcjr)
     viterbi.launches = 0
@@ -598,8 +619,8 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
     CFI, DCI and TB found, bit-exact, with one Viterbi launch per call and
     2 x iterations of the chosen BCJR instance only; ms/batch, decoded
     Mbps and the control stage alone; BLER at 20 dB (MMSE); a corrupted
-    control region finds no DCI. Returns (clean vectors, noisy IQ, the
-    Viterbi launches of the zf early-exit run)."""
+    control region finds no DCI. Returns (clean vectors, noisy IQ,
+    {label: (stats, BCJR launches, Viterbi launches)} of each run)."""
     t0 = time.perf_counter()
     clean = rx.build_clean(BATCH, n_distinct=4)
     noisy = rx.add_noise(clean.rng, clean.td, clean.p_sig, SNR_DB)
@@ -609,9 +630,8 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
     args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
             clean.dci_bits, clean.payloads)
     tbs = clean.grant.tbs
-    vit_launches, chain_ms = None, {}
-    for label, eq, kw in (("zf", "zf", {}), ("mmse", "mmse", {}),
-                          ("zf_scalar", "zf_scalar", {}), ("zf forced", "zf", {"forced": True})):
+    chain_ms, runs = {}, {}
+    for label, eq, kw in BLIND_RUNS:
         fn = rx.make_rx(*args, early_exit=True, eq=eq, device=dev, **kw)
         fn(iq)
         torch.cuda.synchronize()
@@ -628,8 +648,7 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
               f"blind chain {label}: BCJR launches {counts}, expected {expect} of {inst} only")
         if kw:
             check(stats["mean_iters"] == 8.0, f"forced chain: {stats['mean_iters']} iterations")
-        if vit_launches is None:
-            vit_launches = vit
+        runs[label] = (stats, counts, vit)
         t = chain_ms[label] = cuda_ms(torch, lambda: fn(iq), reps=5)
         print(f"phase 9: blind chain {label}: {BATCH}/{BATCH} CFI, DCI and TB, bit-exact; "
               f"1 Viterbi launch, BCJR {inst} x{expect}; mean iters/block "
@@ -669,7 +688,7 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
     check(stats["n_dci"] == 0, f"corrupted control region: {stats['n_dci']} DCIs found")
     print(f"phase 9: corrupted control region: no DCI found, no crash "
           f"(CFI found in {int(stats['cfi_ok'])}/{BATCH})", flush=True)
-    return clean, noisy, vit_launches
+    return clean, noisy, runs
 
 
 def phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterbi, dev,
@@ -2266,14 +2285,238 @@ def phase_mobility(torch, np, bcjr, viterbi, dev, held_r2, held_vit, smi):
     return launches
 
 
+# phase 18: (a) ROADMAP fault 7, the repeats of a rate-matching position
+# summed in one order on the card; (b) the multi-host launch
+FAULT7_SEED = 18
+MULTIHOST_TIMEOUT_S = 300.0  # a node's wait for its peer and each collective
+
+
+def multihost_shapes(worlds):
+    """(label, K, lw, blocks) of every r2max launch one rank of phase 18 (b)
+    makes at each world size: the decode of 2 subframes of 6 PRB MCS 5 and
+    the turbo decoder's K/world bits (4 codewords, windows of 64)."""
+    from srsue_tpu_torch.parallel import multihost
+
+    out = ()
+    for n in worlds:
+        out += (decode_shapes(f"multihost decode world {n}, per rank", 6, multihost.MCS, 2)
+                + ((f"multihost turbo K={multihost.TURBO_K} world {n}, per rank",
+                    multihost.TURBO_K // n, multihost.WINDOW, multihost.TURBO_CODEWORDS),))
+    return out
+
+
+def phase_fault7(torch, np, rx, bcjr, viterbi, dev, clean, noisy, blind):
+    """Phase 18 (a): the softbuffers of every caller whose positions repeat 3
+    times or more, card = CPU bit for bit from the same LLRs through the
+    caller's own tables (the PDCCH blind search at 100 PRB with candidates
+    at L=4 and L=8, a 2 PRB MCS 0 PDSCH grant, a 1 PRB MCS 0 PUSCH grant),
+    with the count of positions where a zero-fill + index_add_ on the card
+    (the scatter the gather replaced) differs; the flagship's dematch (one
+    repeat) timed against that scatter; then phase 9's blind-chain runs
+    again: the same decisions and launch counts. Returns launches by path."""
+    from srsue_tpu_torch import entry
+    from srsue_tpu_torch.phy import control, dci, ra, ratematch
+    from srsue_tpu_torch.phy.cell import Cell, UlGrant
+    from srsue_tpu_torch.phy.pdsch import PdschCodec
+    from srsue_tpu_torch.phy.pusch import PuschCodec
+
+    tag = "phase 18"
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(FAULT7_SEED)
+
+    def bits(x):
+        return x.cpu().contiguous().view(torch.int32)
+
+    def forward(inv, e):
+        """The index map [e] whose inverse is `inv`."""
+        inv = inv.cpu().numpy()
+        rows, cols = np.nonzero(inv < e)
+        idx = np.empty(e, np.int64)
+        idx[inv[rows, cols]] = rows
+        return idx
+
+    small = Cell(n_prb=6, cell_id=7)
+    g = ra.dl_grant(6, 0, n_prb_alloc=1)
+    ul = UlGrant(n_prb=g.n_prb, prb_start=g.prb_start, mcs=g.mcs, mod_order=g.mod_order,
+                 tbs=g.tbs)
+    n_1a = dci.size_0_1a(clean.cell.n_prb)
+
+    def callers(d):
+        """(what, E, the caller's inverse table, its fill: LLRs -> softbuffers) on d."""
+        _, _, scr, inv_b, _, _ = control._blind_tables(clean.cell, clean.subframe, clean.cfi,
+                                                       clean.rnti, n_1a, True, d)
+        pd = PdschCodec(small, ra.dl_grant(6, 0, n_prb_alloc=2), 0x42, 1, device=d)
+        pu = PuschCodec(small, ul, 0x42, 2, device=d)
+        return (("PDCCH blind search, 100 PRB, DCI 1A, L=4 and 8", scr.shape[0], inv_b,
+                 lambda x: [ratematch.dematch(x, inv_b)]),
+                ("PDSCH 6 PRB cell, 2 PRB MCS 0", pd.G, pd.groups[0][5], pd.dematch),
+                ("PUSCH 1 PRB MCS 0", pu.G, pu.groups[0][5],
+                 lambda x: [ratematch.dematch(x, pu.groups[0][5])]))
+
+    for (what, e, inv, fill), (_, _, inv_c, fill_c) in zip(callers(dev), callers(cpu)):
+        llr = (rng.standard_normal((BATCH, e)) * 4).astype(np.float32)
+        card = fill(torch.as_tensor(llr, device=dev))
+        host = fill_c(torch.as_tensor(llr))
+        torch.cuda.synchronize()
+        n_diff = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(card, host))
+        check(n_diff == 0, f"{tag}: (a) {what}: {n_diff} softbuffer values differ from the CPU")
+        d_len = inv.shape[0]
+        old = torch.zeros(BATCH, d_len, device=dev).index_add_(
+            -1, torch.as_tensor(forward(inv, e), device=dev), torch.as_tensor(llr, device=dev))
+        n_old = int((bits(old) != bits(ratematch.dematch(torch.as_tensor(llr), inv_c))).sum())
+        print(f"{tag}: (a) {what}: B={BATCH}, E={e} into {d_len} positions, up to "
+              f"{inv.shape[1]} repeats: card = CPU bit for bit; a zero-fill + index_add_ on "
+              f"the card differs from the CPU at {n_old} of {BATCH * d_len} values", flush=True)
+
+    _, codec = entry.flagship(dev)
+    (k, _, count, lo, hi, inv), = codec.groups
+    llr = torch.as_tensor((rng.standard_normal((BATCH, codec.G)) * 4).astype(np.float32),
+                          device=dev)
+    idx = torch.as_tensor(forward(inv, hi - lo), device=dev)
+    d_len = count * 3 * (k + 4)
+    gather = ratematch.dematch(llr, inv)
+    scatter = torch.zeros(BATCH, d_len, device=dev).index_add_(-1, idx, llr)
+    check(torch.equal(bits(gather), bits(scatter)), f"{tag}: (a) flagship: gather != scatter")
+    t_gather = cuda_ms(torch, lambda: ratematch.dematch(llr, inv), reps=20)
+    t_scatter = cuda_ms(torch, lambda: torch.zeros(BATCH, d_len, device=dev).index_add_(
+        -1, idx, llr), reps=20)
+    b = bound(4 * BATCH * (codec.G + d_len) + 8 * inv.numel(), 0)
+    print(f"{tag}: (a) flagship dematch, B={BATCH}, E={codec.G} into {d_len}, 1 repeat: "
+          f"the gather {t_gather:.4f} ms, the zero-fill + index_add_ it replaced "
+          f"{t_scatter:.4f} ms (bound {b['bound_ms']:.4f} ms, bytes); equal bits", flush=True)
+    del llr, idx, gather, scatter
+
+    iq = torch.as_tensor(noisy, device=dev)
+    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
+            clean.dci_bits, clean.payloads)
+    by_path = {}
+    for label, eq, kw in BLIND_RUNS:
+        fn = rx.make_rx(*args, early_exit=True, eq=eq, device=dev, **kw)
+        fn(iq)
+        torch.cuda.synchronize()
+        zero_all(bcjr, viterbi)
+        stats = {k: float(v) for k, v in fn(iq).items()}
+        torch.cuda.synchronize()
+        got = (stats, dict(bcjr.launches), viterbi.launches)
+        check(got == blind[label], f"{tag}: (a) blind chain {label}: {got}, phase 9 "
+              f"{blind[label]}")
+        by_path[label] = got[1:]
+        print(f"{tag}: (a) blind chain {label}, B={BATCH}: decisions ({int(stats['n_dci'])} "
+              f"DCI, {int(stats['cfi_ok'])} CFI, {int(stats['n_ok'])} TBs, bit_match "
+              f"{stats['bit_match']:.0f}, mean iters {stats['mean_iters']:.3f}) and launches "
+              f"(BCJR {({n: c for n, c in got[1].items() if c})}, Viterbi {got[2]}) = phase "
+              f"9's", flush=True)
+    return by_path
+
+
+def phase_multihost(torch, np, dev, held, n_nodes, local, backend, step):
+    """Phase 18 (b): `n_nodes` node processes (``python -m
+    srsue_tpu_torch.parallel.multihost``) of `local` ranks each over
+    tcp://127.0.0.1 (NCCL: each node sees its own cards; gloo: every rank on
+    this card). Both print MULTIHOST_OK; their decisions equal the unsharded
+    decode and turbo decoder on the card and on the CPU; every r2max launch
+    ran at a shape phase 2 held. Returns launches by path."""
+    import os
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    from srsue_tpu_torch.parallel import multihost
+    from srsue_tpu_torch.phy import turbo
+    from srsue_tpu_torch.phy.pdsch import PdschCodec, equalized
+
+    tag = "phase 18"
+    world = n_nodes * local
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (visible.split(",") if visible
+             else [str(i) for i in range(torch.cuda.device_count())])
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="srsue_multihost_") as tmp:
+        procs, res = [], []
+        t0 = time.perf_counter()
+        try:
+            for node in range(n_nodes):
+                env = dict(os.environ)
+                if backend == "nccl":  # a host's own cards
+                    env["CUDA_VISIBLE_DEVICES"] = ",".join(cards[node * local:(node + 1) * local])
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "srsue_tpu_torch.parallel.multihost", str(node),
+                     str(n_nodes), address, str(local), "--device", dev.type, "--backend",
+                     backend, "--out", os.path.join(tmp, f"node{node}.npz"), "--timeout",
+                     str(MULTIHOST_TIMEOUT_S)], cwd=root, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+            res = [p.communicate(timeout=MULTIHOST_TIMEOUT_S + 120) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        secs = time.perf_counter() - t0
+        for node, (p, (out, err)) in enumerate(zip(procs, res)):
+            check(p.returncode == 0 and "MULTIHOST_OK" in out,
+                  f"{tag}: (b) node {node} exited {p.returncode}:\n{out[-2000:]}\n{err[-6000:]}")
+            print(f"{tag}: (b) node {node}: {out.strip().splitlines()[-1]}", flush=True)
+        nodes = [dict(np.load(os.path.join(tmp, f"node{i}.npz"))) for i in range(n_nodes)]
+
+    got = {key: np.concatenate([n[key] for n in nodes], 1 if key == "turbo_hard" else 0)
+           for key in ("payload", "tb_ok", "iters", "turbo_hard", "ranks", "r2max_launches",
+                       "r2max_shapes")}
+    check(np.array_equal(got["ranks"], np.arange(world)), f"{tag}: (b) ranks {got['ranks']}")
+    for n in nodes:
+        check(np.array_equal(n["turbo_iters"], nodes[0]["turbo_iters"])
+              and np.array_equal(n["turbo_ok"], nodes[0]["turbo_ok"])
+              and int(n["n_ok"]) == 2 * world, f"{tag}: (b) the nodes disagree")
+    ins = multihost.inputs(world)
+    for d in (dev, torch.device("cpu")):
+        codec = PdschCodec(multihost.CELL, ins["grant"], multihost.RNTI, multihost.SUBFRAME,
+                           cfi=1, n_turbo_iters=multihost.DECODE_ITERS, device=d)
+        x_eq, nv_eff, _, _ = equalized(multihost.CELL, codec, codec.subframe,
+                                       torch.as_tensor(ins["noisy"], device=d))
+        payload, tb_ok, _, iters = codec.decode(x_eq, nv_eff)
+        hard, t_iters, t_ok = turbo.decode(torch.as_tensor(ins["llrs"], device=d),
+                                           multihost.TURBO_K, multihost.TURBO_ITERS,
+                                           ins["crc"], early_exit=False,
+                                           window=multihost.WINDOW)
+        for name, a, w in (("payload", got["payload"], payload), ("tb_ok", got["tb_ok"], tb_ok),
+                           ("iters", got["iters"], iters),
+                           ("turbo hard", got["turbo_hard"], hard),
+                           ("turbo iters", nodes[0]["turbo_iters"], t_iters),
+                           ("turbo ok", nodes[0]["turbo_ok"], t_ok)):
+            check(np.array_equal(a, w.cpu().numpy()),
+                  f"{tag}: (b) {name} differs from the unsharded path on {d}")
+    held_n = {(b * (k // lw), lw) for k, lw, b in held}
+    shapes = {tuple(int(v) for v in row[1:]) for row in got["r2max_shapes"]}
+    launches = got["r2max_launches"].tolist()
+    check(all(launches), f"{tag}: (b) r2max launches per rank {launches}")
+    check(shapes <= held_n, f"{tag}: (b) r2max at (windows, lw) {sorted(shapes - held_n)}, "
+          f"not held in phase 2")
+    what = f"multihost {n_nodes} nodes x {local} {backend}"
+    print(f"{tag}: (b) {step} {what} over {address}: {2 * world}/{2 * world} carriers "
+          f"decoded, {multihost.TURBO_CODEWORDS} codewords of K={multihost.TURBO_K} CRC-ok "
+          f"with no bit error; payload, tb_ok, iters and the turbo's hard bits, iters and ok = "
+          f"the unsharded path on the card and on the CPU; launch {secs:.2f} s (the node "
+          f"processes, spawn and group set-up included); r2max launches per rank {launches} "
+          f"at (windows, lw) {sorted(shapes)}, each held in phase 2", flush=True)
+    return {what: int(sum(launches))}
+
+
 def main_world(torch, np, entry, bcjr, dev, n: int, smi) -> int:
     """`--world N`: phase 2 at the sharded paths' shapes, then phase 16's
-    sharded paths at world N over NCCL, one rank per card."""
+    sharded paths at world N over NCCL, one rank per card, and (N even)
+    phase 18 (b) as two nodes of N/2 NCCL ranks, each node on its own cards."""
     check(torch.cuda.device_count() >= n, f"--world {n}: {torch.cuda.device_count()} cards")
     worlds = ((n, "nccl"),)
-    shapes = tuple({sh[1:]: sh for sh in shard_shapes(worlds)}.values())
+    shapes = tuple({sh[1:]: sh for sh in shard_shapes(worlds) + multihost_shapes(
+        (n,) if n % 2 == 0 else ())}.values())
     phase_kernel(torch, bcjr, dev, shapes, base=())
-    launches = phase_shard(torch, np, entry, bcjr, dev, {sh[1:] for sh in shapes}, worlds)
+    held = {sh[1:] for sh in shapes}
+    launches = phase_shard(torch, np, entry, bcjr, dev, held, worlds)
+    if n % 2 == 0:
+        launches.update(phase_multihost(torch, np, dev, held, 2, n // 2, "nccl",
+                                        f"--world {n}:"))
     print(json.dumps({"launches_by_path": launches}), flush=True)
     for line in smi:
         print(line, flush=True)
@@ -2347,7 +2590,7 @@ def main() -> int:
     held |= {sh[1:] for sh in extra}
     ota = {p: ota_shapes(p) for p in (1, 2)}
     mob = mobility_shapes()
-    for sh in ota[1][0] + ota[2][0] + mob[0] + shard_shapes(WORLDS):
+    for sh in ota[1][0] + ota[2][0] + mob[0] + shard_shapes(WORLDS) + multihost_shapes((2,)):
         if sh[1:] not in held:
             extra += (sh,)
             held.add(sh[1:])
@@ -2372,11 +2615,11 @@ def main() -> int:
             vit_cold += (sh,)
             held_vit.add(sh[1:])
     vit_row = phase_viterbi(torch, np, viterbi, convcode, dev, vit_cold)
-    clean, noisy, vit_launches = phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr,
-                                                   viterbi, dev)
+    clean, noisy, blind = phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev)
+    vit_launches = blind["zf"][2]
     phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterbi, dev,
                 clean, noisy)
-    del clean, noisy, iq, want, fn
+    del iq, want, fn
     cold1 = phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports=1, phase=11,
                              shapes=cold[1])
     cold2 = phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports=2, phase=12,
@@ -2388,6 +2631,9 @@ def main() -> int:
     shard_launches = phase_shard(torch, np, entry, bcjr, dev, held, WORLDS)
     shard_launches.update(phase_tools(torch, np, entry, bcjr, dev, held))
     mob_launches = phase_mobility(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
+    f7 = phase_fault7(torch, np, rx, bcjr, viterbi, dev, clean, noisy, blind)
+    del clean, noisy
+    mh_launches = phase_multihost(torch, np, dev, held, 2, 1, "gloo", "two nodes on one card:")
 
     flag = rows[0]
     kernels = [{
@@ -2405,13 +2651,18 @@ def main() -> int:
                              "tm2 early exit": tm2["r2max"],
                              "pusch early exit": ul_launches,
                              "ue_ota": ota_launches["r2max"],
-                             "ue_mobility": mob_launches["r2max"], **shard_launches}}]
+                             "ue_mobility": mob_launches["r2max"], **shard_launches,
+                             **{f"fault 7 blind chain {k}": v[0]["r2max"]
+                                for k, v in f7.items() if v[0]["r2max"]},
+                             **mh_launches}}]
     for name, (source, replaces) in NEW_KERNELS.items():
         kernels.append({"name": f"bcjr_half_{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": new_launches[name], **new[name],
                         "warps_per_sm": warps[name],
                         "launches_by_path": {"entry": new_launches[name], **(
-                            {"tm2 forced": tm2["fused"]} if name == "fused" else {})}})
+                            {"tm2 forced": tm2["fused"],
+                             "fault 7 blind chain zf forced": f7["zf forced"][0]["fused"]}
+                            if name == "fused" else {})}})
     kernels.append({"name": "viterbi", "route": "cuda",
                     "source": "srsue_tpu_torch/csrc/viterbi.cu",
                     "replaces": "srsue_tpu/phy/convcode.py:85", "launches": vit_launches,
@@ -2420,7 +2671,9 @@ def main() -> int:
                                          "cold start 1 port": cold1["viterbi"],
                                          "cold start 2 ports": cold2["viterbi"],
                                          "ue_ota": ota_launches["viterbi"],
-                                         "ue_mobility": mob_launches["viterbi"]}})
+                                         "ue_mobility": mob_launches["viterbi"],
+                                         **{f"fault 7 blind chain {k}": v[1]
+                                            for k, v in f7.items()}}})
     for k in kernels:  # no single PyTorch call computes a max-log BCJR or a Viterbi
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,13 +8,19 @@ rank, so the port has two pieces instead:
 * ``Mesh``: what one rank knows of the group (the process group, its rank,
   the world size, its device; the axis is always the reference's
   ``"carrier"``); ``make_mesh`` joins the group from inside a rank;
-* ``launch(fn, n, device, *args)``: spawns ``n`` ranks (the ``spawn`` start
-  method: a fresh interpreter, never a fork of a process that holds CUDA),
-  joins them into one group, runs ``fn(mesh, *args)`` on each and returns
-  each rank's result to the caller.
+* ``start_ranks``: spawns one node's ranks (the ``spawn`` start method: a
+  fresh interpreter, never a fork of a process that holds CUDA), joins them
+  into a group that meets at an ``init_method``, runs ``fn(mesh, *args)``
+  on each and returns each rank's result to the caller;
+* ``launch(fn, n, device, *args)``: all ``n`` ranks on this host, meeting at
+  a ``file://`` rendezvous in a fresh temp directory. The multi-host launch
+  (``parallel/multihost.py``, one node process per host over ``tcp://``,
+  the counterpart of ``tools/multihost_worker.py``) starts its ranks
+  through ``start_ranks`` too.
 
-On ``"cuda"`` the group is NCCL with one rank per GPU; asking for more ranks
-than there are GPUs raises. On ``"cpu"`` it is gloo. ``backend="gloo"`` on
+On ``"cuda"`` the group is NCCL with one rank per GPU: a rank takes the card
+of its local rank (its index on its node), and asking a node for more ranks
+than it has GPUs raises. On ``"cpu"`` it is gloo. ``backend="gloo"`` on
 ``"cuda"`` is the one explicit exception: gloo ranks may share a card.
 
 ``shard_decode`` is the carrier (data-parallel) axis: each rank decodes its
@@ -41,7 +47,7 @@ from ..phy.cell import Cell
 from ..phy.pdsch import PdschCodec, equalized
 from ..utils.device import require_cuda
 
-TIMEOUT_S = 600.0  # a rank's collectives, and a launch, give up after this
+TIMEOUT_S = 600.0  # a rank's joining and collectives give up after this
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,26 +87,30 @@ def _check_ranks(n: int, device: torch.device, backend: str) -> None:
 
 
 def make_mesh(rank: int, size: int, init_method: str, device: str | torch.device = "cuda",
-              backend: str | None = None) -> Mesh:
+              backend: str | None = None, local_rank: int | None = None,
+              timeout_s: float = TIMEOUT_S) -> Mesh:
     """Join the process group as `rank` of `size` (called inside a rank) and
-    return its Mesh. On CUDA rank r takes card r (under gloo, r modulo the
-    cards)."""
+    return its Mesh. On CUDA the rank takes card `local_rank` (its index on
+    its node; `rank` when every rank runs on this node), under gloo that
+    modulo the cards. Joining, and every collective, gives up after
+    `timeout_s`."""
     dev = torch.device(device)
     backend = _backend(dev, backend)
-    _check_ranks(size, dev, backend)
+    local = rank if local_rank is None else local_rank
+    _check_ranks(size if local_rank is None else local + 1, dev, backend)
     if dev.type == "cuda":
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        dev = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=size,
-                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+                            timeout=datetime.timedelta(seconds=timeout_s))
     return Mesh(dist.group.WORLD, rank, size, dev)
 
 
-def _rank_main(rank, n, init_method, device, backend, fn, args, out):
+def _rank_main(rank, local_rank, size, init_method, device, backend, timeout_s, fn, args, out):
     """A spawned rank: join, run fn, put (rank, ok, value or traceback)."""
     try:
         torch.set_num_threads(1)
-        mesh = make_mesh(rank, n, init_method, device, backend)
+        mesh = make_mesh(rank, size, init_method, device, backend, local_rank, timeout_s)
         out.put((rank, True, fn(mesh, *args)))
     except Exception:  # reported to the parent, which raises it
         out.put((rank, False, traceback.format_exc()))
@@ -109,54 +119,74 @@ def _rank_main(rank, n, init_method, device, backend, fn, args, out):
             dist.destroy_process_group()
 
 
-def launch(fn, n: int, device: str | torch.device = "cuda", *args,
-           backend: str | None = None) -> list:
-    """Run ``fn(mesh, *args)`` on `n` spawned ranks; returns their results
-    in rank order. `fn` and `args` are pickled into each rank, so `fn` is a
-    function of an importable module and the results are host values (numpy
-    arrays, numbers). A rank that raises makes launch raise, with its
-    traceback, after the other ranks are stopped."""
+def start_ranks(fn, args: tuple, init_method: str, size: int, first_rank: int = 0,
+                n_local: int | None = None, device: str | torch.device = "cuda",
+                backend: str | None = None, timeout_s: float = TIMEOUT_S) -> list:
+    """Spawn this node's `n_local` ranks (all `size` by default), global
+    ranks first_rank, ..., first_rank + n_local - 1 of a group of `size` that
+    meets at `init_method`, and run ``fn(mesh, *args)`` on each; returns
+    their results in rank order. `fn` and `args` are pickled into each rank,
+    so `fn` is a function of an importable module and the results are host
+    values (numpy arrays, numbers). A rank that raises makes this raise,
+    with its traceback, after the other ranks are stopped; so does a rank
+    still running after `timeout_s` (a peer that never joins makes its
+    ranks raise after `timeout_s` themselves)."""
+    n_local = size if n_local is None else n_local
     dev = torch.device(device)
     backend = _backend(dev, backend)
-    _check_ranks(n, dev, backend)
+    _check_ranks(n_local, dev, backend)
+    if not 0 <= first_rank <= size - n_local:
+        raise ValueError(f"ranks {first_rank}..{first_rank + n_local - 1} outside a group "
+                         f"of {size}")
     ctx = torch.multiprocessing.get_context("spawn")
-    tmp = Path(tempfile.mkdtemp(prefix="srsue_mesh_"))
-    init_method = f"file://{tmp / 'rendezvous'}"
     out = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, args=(r, n, init_method, str(dev), backend, fn,
-                                                   args, out), daemon=True)
-             for r in range(n)]
+    procs = {first_rank + r: ctx.Process(
+        target=_rank_main, args=(first_rank + r, r, size, init_method, str(dev), backend,
+                                 timeout_s, fn, args, out), daemon=True)
+        for r in range(n_local)}
     results: dict[int, object] = {}
     try:
-        for p in procs:
+        for p in procs.values():
             p.start()
-        deadline = time.monotonic() + TIMEOUT_S
-        while len(results) < n:
+        # the ranks' own timeouts report first; this one catches a rank stuck elsewhere
+        deadline = time.monotonic() + timeout_s + 30.0
+        while len(results) < n_local:
             try:
                 rank, ok, value = out.get(timeout=1.0)
             except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if r not in results and not p.is_alive()]
+                dead = [r for r, p in procs.items() if r not in results and not p.is_alive()]
                 if dead:
                     raise RuntimeError(f"rank(s) {dead} exited without a result "
                                        f"(exit codes {[procs[r].exitcode for r in dead]})")
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"{n - len(results)} rank(s) still running after "
-                                       f"{TIMEOUT_S} s") from None
+                    raise TimeoutError(f"{n_local - len(results)} rank(s) still running "
+                                       f"after {timeout_s} s") from None
                 continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of {n} failed:\n{value}")
+                raise RuntimeError(f"rank {rank} of {size} failed:\n{value}")
             results[rank] = value
-        for p in procs:
+        for p in procs.values():
             p.join(timeout=60)
     finally:
-        for p in procs:
+        for p in procs.values():
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
         out.close()
+    return [results[r] for r in sorted(results)]
+
+
+def launch(fn, n: int, device: str | torch.device = "cuda", *args,
+           backend: str | None = None) -> list:
+    """Run ``fn(mesh, *args)`` on `n` ranks spawned on this host
+    (``start_ranks`` with a ``file://`` rendezvous in a fresh temp
+    directory); returns their results in rank order."""
+    tmp = Path(tempfile.mkdtemp(prefix="srsue_mesh_"))
+    try:
+        return start_ranks(fn, args, f"file://{tmp / 'rendezvous'}", n, device=device,
+                           backend=backend)
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return [results[r] for r in range(n)]
 
 
 # ------------------------------------------------------------- collectives

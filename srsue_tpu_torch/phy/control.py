@@ -358,9 +358,10 @@ def search_space_candidates(n_cce: int, rnti: int, subframe: int,
 def _blind_tables(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
                   ue_specific: bool, device: torch.device):
     """Every candidate's REs, one after the other: (n_cand, RE index [M],
-    +-1 scrambling [2M], softbuffer index [2M] = candidate * 3 n_coded + its
-    conv dematch position), and the [n_coded, 16] CRC16 syndrome matrix
-    with the RNTI mask bits."""
+    +-1 scrambling [2M], the inverse (``ratematch.inverse_index``) of the
+    softbuffer index [2M] = candidate * 3 n_coded + its conv dematch
+    position, the [n_coded, 16] CRC16 syndrome matrix and the RNTI mask
+    bits)."""
     n_cce, cce_re = pdcch_geometry(cell, cfi)
     cands = search_space_candidates(n_cce, rnti, subframe, ue_specific)
     if not cands:
@@ -369,8 +370,9 @@ def _blind_tables(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
     n_coded = dci_len + 16
     res = np.concatenate([cce_re[s: s + l].reshape(-1) for s, l in cands]).astype(np.int64)
     scr = np.concatenate([scr_full[72 * s: 72 * (s + l)] for s, l in cands])
-    buf = np.concatenate([i * 3 * n_coded + ratematch.conv_rm_indices(n_coded, 72 * l)
-                          for i, (_, l) in enumerate(cands)])
+    buf = ratematch.inverse_index(
+        np.concatenate([i * 3 * n_coded + ratematch.conv_rm_indices(n_coded, 72 * l)
+                        for i, (_, l) in enumerate(cands)]), len(cands) * 3 * n_coded)
     m = np.zeros((n_coded, 16), np.float32)
     m[:dci_len] = crc.crc_matrix(dci_len, "16")
     m[dci_len:] = np.eye(16, dtype=np.float32)
@@ -387,9 +389,9 @@ def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
     batch-shaped or scalar. Returns (hard [..., n_cand, dci_len] uint8
     payloads, ok [..., n_cand] bool RNTI-masked CRC16 pass) in the order
     of ``search_space_candidates``. One gather, QPSK demap, descramble and
-    scatter-add fill every candidate's softbuffer (repeated positions at
-    L >= 2 sum, on CUDA in no fixed order: equal up to float32 rounding of
-    the sum); one ``convcode.decode`` call decodes them all; the CRC16 is
+    dematch fill every candidate's softbuffer (the repeats of a position at
+    L >= 2 sum in the order sent, from 0.0: the same bits on every device);
+    one ``convcode.decode`` call decodes them all; the CRC16 is
     one float32 GF(2) product, exact in full float32
     (``utils.device.require_cuda`` turns TF32 off)."""
     n_cand, res, scr, buf, crc_m, mask = _blind_tables(cell, subframe, cfi, rnti, dci_len,
@@ -398,7 +400,7 @@ def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
     lead = grid_eq.shape[:-2]
     y, nv = _gather_re(grid_eq, nv_eff, res)
     llr = modulation.demodulate_soft(y, 2, nv) * scr  # [..., 2M]
-    buffers = ratematch.dematch(llr, buf, n_cand * 3 * n_coded)
+    buffers = ratematch.dematch(llr, buf)
     flat = buffers.reshape(-1, 3, n_coded).transpose(1, 2).contiguous()
     hard = convcode.decode(flat).reshape(lead + (n_cand, n_coded))
     syn = torch.remainder(torch.round(hard.to(torch.float32) @ crc_m) + mask, 2.0)

@@ -111,9 +111,8 @@ def dematch_quarter(llr: torch.Tensor) -> torch.Tensor:
 
     ``conv_rm_indices(40, 1920)`` tiles one 120-long pattern, so every
     quarter holds 4 whole repeats of it: they are summed in the order sent
-    and placed by the pattern. Unlike a scatter-add (``ratematch.dematch``
-    on CUDA) the sum has one order on every device, and MIB decisions must
-    be the same on each."""
+    and placed by the pattern, the order ``ratematch.dematch`` sums in, with
+    one gather less."""
     n = 3 * CODED
     pattern = torch.as_tensor(ratematch.conv_rm_indices(CODED, E_TOTAL)[:n], device=llr.device)
     r = llr.reshape(llr.shape[:-1] + (E_FRAME // n, n))

@@ -105,8 +105,8 @@ class PdschCodec:
         if self.e_offsets[-1] != self.G or len(self.scr_pm1) != self.G:
             raise ValueError("rate-matching maps / scrambling do not cover G")
 
-        # K-groups (K- blocks first): one scatter map per group
-        self.groups = []  # (k, first block, count, E lo, E hi, flat index)
+        # K-groups (K- blocks first): one dematch table per group
+        self.groups = []  # (k, first block, count, E lo, E hi, inverse index)
         b = 0
         for k in dict.fromkeys(p.block_ks):
             count = p.block_ks.count(k)
@@ -114,7 +114,8 @@ class PdschCodec:
             idx = np.concatenate([j * d_len + self.rm_idx[b + j] for j in range(count)])
             self.groups.append((k, b, count, int(self.e_offsets[b]),
                                 int(self.e_offsets[b + count]),
-                                torch.as_tensor(idx, device=dev)))
+                                torch.as_tensor(ratematch.inverse_index(idx, count * d_len),
+                                                device=dev)))
             b += count
         # TB bits (+ CRC24A) as positions in the concatenated hard blocks
         parts, off = [], 0
@@ -166,10 +167,9 @@ class PdschCodec:
         """Descrambled LLRs [..., G] -> one softbuffer [..., count, 3(K+4)]
         per K-group, with the filler prior in block 0."""
         out = []
-        for k, first, count, lo, hi, idx in self.groups:
-            d_len = 3 * (k + 4)
-            buf = ratematch.dematch(llrs[..., lo:hi], idx, count * d_len)
-            buf = buf.reshape(llrs.shape[:-1] + (count, d_len))
+        for k, first, count, lo, hi, inv in self.groups:
+            buf = ratematch.dematch(llrs[..., lo:hi], inv)
+            buf = buf.reshape(llrs.shape[:-1] + (count, 3 * (k + 4)))
             if first == 0 and self.plan.f:
                 buf[..., 0, :self.plan.f] += FILLER_LLR
             out.append(buf)

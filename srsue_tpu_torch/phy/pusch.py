@@ -133,14 +133,15 @@ class PuschCodec:
         self.blk_crc = {k: blk_crc_matrix(p, i, k) for i, k in enumerate(p.block_ks)}
 
         # device tables of the receive path
-        self.groups = []  # (k, first block, count, E lo, E hi, flat index)
+        self.groups = []  # (k, first block, count, E lo, E hi, inverse index)
         b = 0
         for k in dict.fromkeys(p.block_ks):
             count = p.block_ks.count(k)
             d_len = 3 * (k + 4)
             idx = np.concatenate([j * d_len + self.rm_idx[b + j] for j in range(count)])
-            self.groups.append((k, b, count, int(self.e_offsets[b]),
-                                int(self.e_offsets[b + count]), torch.as_tensor(idx, device=dev)))
+            self.groups.append((k, b, count, int(self.e_offsets[b]), int(self.e_offsets[b + count]),
+                                torch.as_tensor(ratematch.inverse_index(idx, count * d_len),
+                                                device=dev)))
             b += count
         parts, off = [], 0
         for i, k in enumerate(p.block_ks):
@@ -247,10 +248,8 @@ class PuschCodec:
             llr_all[..., self._cqi_pos, :] if self.n_cqi_bits else None,
             llr_all[..., self._ack_pos, :] if self.with_ack else None)
         bufs = []
-        for k, first, count, lo, hi, idx in self.groups:
-            d_len = 3 * (k + 4)
-            buf = ratematch.dematch(llr[..., lo:hi], idx, count * d_len).reshape(
-                lead + (count, d_len))
+        for k, first, count, lo, hi, inv in self.groups:
+            buf = ratematch.dematch(llr[..., lo:hi], inv).reshape(lead + (count, 3 * (k + 4)))
             if first == 0 and self.plan.f:
                 buf[..., 0, :self.plan.f] += FILLER_LLR
             bufs.extend(buf.unbind(-2))

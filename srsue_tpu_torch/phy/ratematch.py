@@ -3,10 +3,12 @@
 
 Counterpart of ``srsue_tpu/phy/ratematch.py``. The sub-block interleaver
 and circular-buffer selection are host-precomputed index maps (numpy); on
-the device, matching is one gather ``e[i] = d[idx[i]]`` and dematching one
-scatter-add ``w[idx[e]] += llr[e]`` (HARQ soft-combining is ``+`` of the
-buffers). NULL (dummy/filler) positions
-never appear in an index map.
+the device, matching is one gather ``e[i] = d[idx[i]]``. Dematching sums
+``w[idx[e]] += llr[e]`` (HARQ soft-combining is ``+`` of the buffers) as a
+gather over the map's inverse (``inverse_index``): each position adds its
+repeats in ascending e from 0.0, the order of the CPU's ``index_add_`` and
+of the reference's scatter-add on XLA:CPU, on every device. NULL
+(dummy/filler) positions never appear in an index map.
 """
 
 from __future__ import annotations
@@ -118,10 +120,36 @@ def match(d_flat: torch.Tensor, idx: np.ndarray | torch.Tensor) -> torch.Tensor:
     return d_flat[..., torch.as_tensor(idx, dtype=torch.int64, device=d_flat.device)]
 
 
-def dematch(llrs: torch.Tensor, idx: torch.Tensor, d_len: int) -> torch.Tensor:
-    """[..., E] LLRs -> [..., d_len] by scatter-add. Positions sent more
-    than once accumulate (on CUDA in no fixed order: equal up to float32
-    rounding of the sum); positions never sent are 0."""
-    out = torch.zeros(llrs.shape[:-1] + (d_len,), dtype=llrs.dtype,
-                      device=llrs.device)
-    return out.index_add_(-1, idx, llrs)
+def inverse_index(idx: np.ndarray, d_len: int) -> np.ndarray:
+    """The inverse of an index map ``idx`` [E] into [d_len] positions, for
+    ``dematch``: [d_len, R] int64, R the most repeats of any position, row p
+    the e with ``idx[e] == p`` in ascending order, padded with E (the
+    appended zero column of ``dematch``)."""
+    idx = np.asarray(idx, np.int64)
+    if idx.size and not 0 <= int(idx.min()) <= int(idx.max()) < d_len:
+        raise ValueError(f"index map outside [0, {d_len})")
+    counts = np.bincount(idx, minlength=d_len)
+    order = np.argsort(idx, kind="stable")  # ascending e within each position
+    rank = np.arange(len(idx)) - (np.cumsum(counts) - counts)[idx[order]]
+    table = np.full((d_len, max(int(counts.max(initial=0)), 1)), len(idx), np.int64)
+    table[idx[order], rank] = order
+    return table
+
+
+def dematch(llrs: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """[..., E] LLRs -> [..., d_len] softbuffer through the inverse map
+    ``inv`` [d_len, R] (``inverse_index``, on the LLRs' device). Position p
+    sums its repeats as 0.0 + llr[inv[p, 0]] + llr[inv[p, 1]] + ..., one
+    rounding per step in that order (never a reduction over R), so every
+    device gives the CPU ``index_add_``'s bits; positions never sent are
+    +0.0. Adding 0.0 to the LLRs once (-0.0 becomes +0.0) is the sum's first
+    step, which leaves the first gathered term as the running sum."""
+    e = llrs.shape[-1]
+    padded = llrs.new_empty(llrs.shape[:-1] + (e + 1,))
+    torch.add(llrs, 0.0, out=padded[..., :e])
+    padded[..., e] = 0.0
+    g = padded[..., inv]  # [..., d_len, R]
+    acc = g[..., 0]
+    for j in range(1, inv.shape[-1]):
+        acc = acc + g[..., j]
+    return acc

@@ -473,3 +473,47 @@ def test_sweep_on_the_card_equals_the_cpu(cuda_device):
     cpu = bler.sweep_pdsch(*args, n_sf_per_point=6, device="cpu")
     assert [p.bler for p in card] == [p.bler for p in cpu]
     assert [p.mean_iters for p in card] == [p.mean_iters for p in cpu]
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().contiguous().view(torch.int32).numpy()
+
+
+def test_repeated_positions_sum_as_on_the_cpu(cuda_device):
+    """ROADMAP fault 7: softbuffers whose positions are sent 3 to 5 times
+    (the PDCCH blind search at 100 PRB, whose common space holds L=4 and L=8
+    candidates; a 2 PRB MCS 0 PDSCH grant, 4 repeats; a 1 PRB MCS 0 PUSCH
+    grant, 3 repeats) are the CPU's bit for bit, from the same LLRs through
+    each caller's own tables."""
+    from srsue_tpu_torch.phy import control, dci, ratematch
+    from srsue_tpu_torch.phy.cell import UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCodec
+
+    rng = np.random.default_rng(7)
+    cell = Cell(n_prb=100, cell_id=42)
+    tables = {dev: control._blind_tables(cell, 6, 1, 0x1234, dci.size_0_1a(100), True,
+                                         torch.device(dev)) for dev in (cuda_device, "cpu")}
+    inv = {dev: t[3] for dev, t in tables.items()}
+    assert inv["cpu"].shape[1] == 5
+    llr = (rng.standard_normal((64, tables["cpu"][2].shape[0])) * 4).astype(np.float32)
+    got = {dev: ratematch.dematch(torch.as_tensor(llr, device=dev), inv[dev]) for dev in inv}
+    np.testing.assert_array_equal(_bits(got[cuda_device]), _bits(got["cpu"]))
+
+    small = Cell(n_prb=6, cell_id=7)
+    pdsch = {dev: PdschCodec(small, ra.dl_grant(6, 0, n_prb_alloc=2), 0x42, 1, device=dev)
+             for dev in (cuda_device, "cpu")}
+    assert pdsch["cpu"].groups[0][5].shape == (180, 4)
+    llr = (rng.standard_normal((64, pdsch["cpu"].G)) * 4).astype(np.float32)
+    got = {dev: c.dematch(torch.as_tensor(llr, device=dev)) for dev, c in pdsch.items()}
+    for a, b in zip(got[cuda_device], got["cpu"]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+    g = ra.dl_grant(6, 0, n_prb_alloc=1)
+    ul = UlGrant(n_prb=g.n_prb, prb_start=g.prb_start, mcs=g.mcs, mod_order=g.mod_order,
+                 tbs=g.tbs)
+    pusch = {dev: PuschCodec(small, ul, 0x42, 2, device=dev) for dev in (cuda_device, "cpu")}
+    assert pusch["cpu"].groups[0][5].shape == (132, 3)
+    llr = (rng.standard_normal((64, pusch["cpu"].G)) * 4).astype(np.float32)
+    got = {dev: ratematch.dematch(torch.as_tensor(llr, device=dev), c.groups[0][5])
+           for dev, c in pusch.items()}
+    np.testing.assert_array_equal(_bits(got[cuda_device]), _bits(got["cpu"]))

@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax():
                  "rrc.si_sched", "nas.nas", "nas.messages", "usim.usim", "usim.security",
                  "gw.gw", "enb.stack", "enb.phy", "ue", "main", "radio.socket_radio",
                  "utils.timers", "utils.metrics", "utils.pcap", "parallel", "parallel.mesh",
-                 "parallel.ranks", "parallel.timeshard", "parallel.turbo_shard", "phy.bler",
+                 "parallel.ranks", "parallel.timeshard", "parallel.turbo_shard",
+                 "parallel.multihost", "phy.bler",
                  "utils.trace", "utils.logger", "utils.native", "radio.native_io"):
         assert f"srsue_tpu_torch.{name} " in res.stdout + " "
 
@@ -71,6 +72,26 @@ def test_uplink_modules_import_without_jax():
     res = _run(["-c", _IMPORT_UPLINK], REPO)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "ok"
+
+
+_IMPORT_MULTIHOST = """
+import sys
+import srsue_tpu_torch.parallel.multihost
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+ref = sorted(m for m in sys.modules if m == "srsue_tpu" or m.startswith("srsue_tpu."))
+assert not ref, ref
+print("ok")
+"""
+
+
+def test_multihost_node_imports_without_jax():
+    """The multi-host node, imported on its own and run by ``python -m``
+    (here for its usage), loads neither JAX nor the JAX package."""
+    res = _run(["-c", _IMPORT_MULTIHOST], REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+    res = _run(["-m", "srsue_tpu_torch.parallel.multihost", "--help"], REPO)
+    assert res.returncode == 0 and "tcp://host:port" in res.stdout, res.stderr
 
 
 def test_chip_smoke_imports_no_jax():
@@ -122,7 +143,7 @@ def _default_device_calls():
     from srsue_tpu_torch.phy.ue_dl import UeDl
 
     from srsue_tpu_torch import entry
-    from srsue_tpu_torch.parallel import mesh, ranks
+    from srsue_tpu_torch.parallel import mesh, multihost, ranks
     from srsue_tpu_torch.phy import bler, control
     from srsue_tpu_torch.phy.cell import UlGrant
     from srsue_tpu_torch.phy.pusch import PuschCodec
@@ -153,6 +174,7 @@ def _default_device_calls():
         "launch": lambda: mesh.launch(ranks.dryrun, 1),
         "make_mesh": lambda: mesh.make_mesh(0, 1, "file:///nonexistent/rendezvous"),
         "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+        "multihost": lambda: multihost.run_node(0, 1, "tcp://127.0.0.1:1", 1),
         "sweep_pdsch": lambda: bler.sweep_pdsch(cell, 5, [10.0], n_sf_per_point=1),
     }
 
@@ -160,7 +182,7 @@ def _default_device_calls():
 @pytest.mark.parametrize("name", ["make_rx", "PdschCodec", "codec", "UeDl", "UeDl_2port",
                                   "make_tm2_rx", "Receiver", "PuschCodec", "phich_decode",
                                   "Phy", "EnbPhy", "launch", "make_mesh", "dryrun_multichip",
-                                  "sweep_pdsch"])
+                                  "multihost", "sweep_pdsch"])
 def test_entry_point_defaults_to_the_card(name):
     """Without a device argument an entry point asks for CUDA, and raises
     on a machine without a GPU."""

@@ -3,9 +3,9 @@
 Exact: MIB packing, the 1920-bit codeword, the frame symbols, the RE map,
 and every decision of ``decode`` (MIB fields, quarter, port count, the
 reject of a wrong cell id) on the same noisy subframe. The deterministic
-dematch of one quarter equals the scatter-add of ``ratematch.dematch`` on
-the CPU and of the reference bit for bit: all three add the 4 repeats in
-the order sent.
+dematch of one quarter equals the CPU's scatter-add, ``ratematch.dematch``
+and the reference bit for bit: all four add the 4 repeats in the order
+sent.
 """
 
 import dataclasses
@@ -110,8 +110,10 @@ def test_deterministic_dematch_equals_scatter_add():
         np.testing.assert_array_equal(idx[sl], np.tile(idx[:120], 4))
         full = np.zeros((4, pbch.E_TOTAL), np.float32)
         full[:, sl] = llr
+        np.testing.assert_array_equal(got, torch.zeros(4, 120).index_add_(
+            -1, torch.as_tensor(idx), torch.as_tensor(full)).numpy())
         np.testing.assert_array_equal(got, ratematch.dematch(
-            torch.as_tensor(full), torch.as_tensor(idx), 120).numpy())
+            torch.as_tensor(full), torch.as_tensor(ratematch.inverse_index(idx, 120))).numpy())
         np.testing.assert_array_equal(got, np.asarray(ref_rm.dematch(
             jnp.asarray(full), idx, 120)))
     assert sorted(idx[:120].tolist()) == list(range(120))

@@ -173,7 +173,7 @@ def test_turbo_match_equals_the_reference_and_roundtrips(k, e, rv):
     np.testing.assert_array_equal(tx.numpy(), np.asarray(ref_rm.match(jnp.asarray(d_flat), idx)))
     np.testing.assert_array_equal(ratematch.match(t(d_flat), t(idx)).numpy(), tx.numpy())
     soft = 1.0 - 2.0 * tx
-    w = ratematch.dematch(soft, torch.as_tensor(idx), 3 * (k + 4))
+    w = ratematch.dematch(soft, t(ratematch.inverse_index(idx, 3 * (k + 4))))
     hard, _, _ = turbo.decode(w.reshape(1, 3, k + 4), k, n_iters=6)
     if e >= 3 * k:  # enough bits for a reliable decode
         np.testing.assert_array_equal(hard.numpy()[0], b)
@@ -188,7 +188,7 @@ def test_conv_match_equals_the_reference_and_roundtrips():
     idx = ratematch.conv_rm_indices(n, 120)
     tx = ratematch.match(t(c), idx)
     np.testing.assert_array_equal(tx.numpy(), np.asarray(ref_rm.match(jnp.asarray(c), idx)))
-    w = ratematch.dematch(1.0 - 2.0 * tx, torch.as_tensor(idx), 3 * n).reshape(3, n)
+    w = ratematch.dematch(1.0 - 2.0 * tx, t(ratematch.inverse_index(idx, 3 * n))).reshape(3, n)
     np.testing.assert_array_equal(convcode.decode(w.T[None].contiguous()).numpy()[0], m)
 
 
