@@ -142,7 +142,23 @@ Phases, each of which fails the run:
      and window-sharded turbo decoder: both print MULTIHOST_OK, their
      decisions equal the unsharded decode and turbo decoder on the card and
      on the CPU, every r2max launch at a shape phase 2 held; prints the
-     launch's seconds and each rank's r2max launches.
+     launch's seconds and each rank's r2max launches;
+ 19. the demap kernel (csrc/demap.cu: max-log soft demap, descramble and
+     rate dematch in one pass) against its plain version at atol 0, bit for
+     bit, on every caller's shapes: the flagship PDSCH (64QAM, B=256, 13 x
+     K=5824) in both forms and with scalar noise, a 16QAM grant, the TM2
+     flagship's combined symbols, the PDCCH blind search at 100 PRB (L=1-8,
+     up to 5 repeats), PCFICH's 32 and PBCH's 480 LLRs, the 2 PRB MCS 0
+     PDSCH and 1 PRB MCS 0 PUSCH grants (4 and 3 repeats), phase 14's
+     full-width PUSCH at B=256, the 50 PRB MCS 20 grant with ACK + 4 CQI
+     bits (erasures), and a seeded table for any other (form, qm, R) that
+     phases 3-18 launched at; each compared call one launch, and every
+     launch of phases 3-18 at a (form, qm, R) held (kernels.demap.shapes);
+     the flagship and uplink calls timed (CUDA events, device time) against
+     the plain composition beside their bounds, phase 3's demap + dematch
+     stage and the forced 8 chain with the kernel and with the torch
+     composition in one call; phase 3's chain, phase 9's blind run, phase
+     14's B=256 decode and the UCI again with the same decisions.
 
 Prints the kernels' JSON record (time between CUDA events around repeated
 calls, the kernel's own device time by torch.profiler, plain twin's time,
@@ -298,9 +314,29 @@ def fused_bound(blocks: int, k: int, lw: int) -> dict:
 
 
 def zero_counts(bcjr) -> None:
+    """Zero the BCJR counters (and the demap kernel's: every path that
+    decodes a turbo block demaps first)."""
+    from srsue_tpu_torch.kernels import demap
+
     for name in bcjr.launches:
         bcjr.launches[name] = 0
         bcjr.shapes[name].clear()
+    demap.launches = 0
+
+
+# demap launches of each path since its counters were zeroed (phase 19
+# reads them; demap.shapes keeps every launch's shape from phase 3 on)
+DEMAP_BY_PATH: dict = {}
+
+
+def note_demap(path: str) -> int:
+    """Record the demap kernel's launches on `path` since the counters were
+    zeroed; fails where the path made none."""
+    from srsue_tpu_torch.kernels import demap
+
+    n = DEMAP_BY_PATH[path] = demap.launches
+    check(n > 0, f"{path}: the demap kernel did not launch")
+    return n
 
 
 def half_args(torch, dev, k, lw, blocks):
@@ -373,6 +409,7 @@ def phase_chain(torch, entry, bcjr, dev):
     pay, ok, iters = fn(iq)
     torch.cuda.synchronize()
     launches = bcjr.launches["r2max"]
+    check(note_demap("entry early exit") == 1, "early exit: one demap launch per K-group")
     check(sum(bcjr.launches.values()) == launches, f"early exit: {bcjr.launches}")
     check(bool(ok.all()), f"early exit: {int((~ok).sum())} TBs failed CRC")
     check(bool((pay == want).all()), "early exit: payload not bit-exact")
@@ -422,7 +459,7 @@ def phase_chain(torch, entry, bcjr, dev):
     }
     print(f"phase 3: per-stage ms/batch (B={BATCH}): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_ms.items()), flush=True)
-    return fn, iq, want, launches
+    return fn, iq, want, launches, iters
 
 
 def max_diff(torch, got, ref, tol) -> float:
@@ -639,6 +676,7 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
         stats = {k: float(v) for k, v in fn(iq).items()}
         torch.cuda.synchronize()
         counts, vit = dict(bcjr.launches), viterbi.launches
+        note_demap(f"blind chain {label}")
         check(stats["n_dci"] == stats["cfi_ok"] == stats["n_ok"] == BATCH
               and stats["bit_match"] == 1.0, f"blind chain {label}: {stats}")
         check(vit == 1, f"blind chain {label}: {vit} Viterbi launches, expected 1")
@@ -711,6 +749,7 @@ def phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterb
     check(bool(res.tb_ok.all()) and bool((res.payload == clean.payloads).all()),
           "UeDl: payloads not bit-exact")
     check(viterbi.launches == 1, f"UeDl: {viterbi.launches} Viterbi launches")
+    note_demap("UeDl.process")
     print(f"phase 10: UeDl.process B={BATCH}: CFI {res.cfi}, one grant (TBS "
           f"{res.grants[0].tbs}) in every subframe, {BATCH}/{BATCH} TBs bit-exact; "
           f"{wall:.3f} ms host wall per call (CFI and hits read back)", flush=True)
@@ -873,6 +912,7 @@ def phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports: int, phase: int
             break
     torch.cuda.synchronize()
     counts, vit = dict(bcjr.launches), viterbi.launches
+    note_demap(f"cold start {n_ports} port(s)")
     check(res is not None, f"{tag}: the stream ended before subframe {target}")
     check(r.state == "SYNC_DONE" and abs(r.metrics["cfo_hz"] - COLD_CFO * 15e3) < 300,
           f"{tag}: state {r.state}, {r.metrics}")
@@ -967,7 +1007,8 @@ def phase_silence(np, dev):
 
 def phase_tm2(torch, rx, bcjr, viterbi, dev, siso_forced_ms):
     """rx.make_tm2_rx on rx.build_tm2's B=256 subframes at 26 dB, early exit
-    and forced 8. Returns {form: launches of its BCJR instance}."""
+    and forced 8. Returns ({form: launches of its BCJR instance}, (the test
+    vectors, the noisy IQ on the card))."""
     t0 = time.perf_counter()
     clean = rx.build_tm2(BATCH, n_distinct=4)
     iq = torch.as_tensor(rx.add_noise(clean.rng, clean.td, clean.p_sig, SNR_DB), device=dev)
@@ -984,6 +1025,7 @@ def phase_tm2(torch, rx, bcjr, viterbi, dev, siso_forced_ms):
         stats = {k: float(v) for k, v in fn(iq).items()}
         torch.cuda.synchronize()
         counts = dict(bcjr.launches)
+        note_demap(f"tm2 {label}")
         check(stats["n_ok"] == BATCH and stats["bit_match"] == 1.0, f"TM2 {label}: {stats}")
         expect = 2 * int(stats["max_iters"])
         check(counts == {n: expect if n == inst else 0 for n in counts} and viterbi.launches == 0,
@@ -998,7 +1040,7 @@ def phase_tm2(torch, rx, bcjr, viterbi, dev, siso_forced_ms):
               f"{stats['n_ok'] * tbs / t / 1e3:.1f} Mbps decoded" + (
                   f" (SISO forced 8 chain of phase 6: {siso_forced_ms:.3f} ms/batch)"
                   if kw else ""), flush=True)
-    return out
+    return out, (clean, iq)
 
 
 def ul_grants(rx):
@@ -1033,7 +1075,7 @@ def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
     PHICH on 1 and 2 ports. `held` is the set of (K, lw, blocks) at which
     phase 2 held r2max against its twin; every r2max launch here must have
     run at one of them, as the wrapper records it (bcjr.shapes). Returns the
-    r2max launches of the B=256 decode."""
+    r2max launches of the B=256 decode and (its IQ, payloads, iterations)."""
     from srsue_tpu_torch.mac.ul_harq import UlHarq
     from srsue_tpu_torch.phy import control, equalize
     from srsue_tpu_torch.phy.cell import Cell
@@ -1097,6 +1139,7 @@ def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
     pay, ok, iters = codec.decode_sf(iq)
     torch.cuda.synchronize()
     counts = dict(bcjr.launches)
+    check(note_demap("pusch B=256") == 1, "uplink: one demap launch per K-group")
     loops = int(iters.max())
     check(bool(ok.all()), f"uplink B={BATCH}: {int((~ok).sum())} TBs failed CRC")
     check(bool((pay == want).all()), f"uplink B={BATCH}: payload not bit-exact")
@@ -1129,7 +1172,8 @@ def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
     ran_held("B=1")
     print(f"phase 14: corrupted subframe: CRC fails, {int(it_bad.max())} iterations, no crash",
           flush=True)
-    del iq, want, one, bad
+    kept = (iq, want, iters)  # phase 19 decodes them again
+    del one, bad
 
     # UCI on bench.py's grant: the ACK bit and UlCtrl's wideband CQI, B=1
     ctl = UlCtrl(UlCtrlConfig(cqi_config_index=2, n_prb=cell.n_prb))  # period 5, offset 0
@@ -1232,7 +1276,7 @@ def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
         print(f"phase 14: PHICH on {n_ports} port(s): {len(sent)} PHICHs ({n_groups} groups x 8 "
               f"sequences, {int(want_sign.sum())} ACK), every decision right on the card, card "
               f"= CPU (metric within rtol 1e-5)", flush=True)
-    return launches
+    return launches, kept
 
 
 # phase 15: the whole UE over the air, the port's Ue + Phy against its EnbPhy
@@ -1518,7 +1562,8 @@ def phase_ota(torch, np, bcjr, viterbi, dev, held_r2, held_vit, smi):
     print(f"{tag}: (c) 100 PRB 2-port cell: attached at TTI {t_att2}, a packet each way "
           f"byte-exact", flush=True)
     torch.cuda.synchronize()
-    launches = {"r2max": bcjr.launches["r2max"], "viterbi": viterbi.launches}
+    launches = {"r2max": bcjr.launches["r2max"], "viterbi": viterbi.launches,
+                "demap": note_demap("ue_ota")}
     others = {k: v for k, v in bcjr.launches.items() if k != "r2max" and v}
     check(launches["r2max"] > 0 and launches["viterbi"] > 0 and not others,
           f"{tag}: launches {launches}, other BCJR instances {others}")
@@ -2221,7 +2266,8 @@ def phase_mobility(torch, np, bcjr, viterbi, dev, held_r2, held_vit, smi):
     page = mobility_page(torch, np, dev)
     ctrl, sub, ctrl_link = mobility_ul_ctrl(torch, np, dev)
     torch.cuda.synchronize()
-    launches = {"r2max": bcjr.launches["r2max"], "viterbi": viterbi.launches}
+    launches = {"r2max": bcjr.launches["r2max"], "viterbi": viterbi.launches,
+                "demap": note_demap("ue_mobility")}
     others = {k: v for k, v in bcjr.launches.items() if k != "r2max" and v}
     check(launches["r2max"] > 0 and launches["viterbi"] > 0 and not others,
           f"{tag}: launches {launches}, other BCJR instances {others}")
@@ -2398,6 +2444,7 @@ def phase_fault7(torch, np, rx, bcjr, viterbi, dev, clean, noisy, blind):
         stats = {k: float(v) for k, v in fn(iq).items()}
         torch.cuda.synchronize()
         got = (stats, dict(bcjr.launches), viterbi.launches)
+        note_demap(f"fault 7 blind chain {label}")
         check(got == blind[label], f"{tag}: (a) blind chain {label}: {got}, phase 9 "
               f"{blind[label]}")
         by_path[label] = got[1:]
@@ -2503,6 +2550,313 @@ def phase_multihost(torch, np, dev, held, n_nodes, local, backend, step):
     return {what: int(sum(launches))}
 
 
+# phase 19: the demap kernel (csrc/demap.cu) against its plain version
+DEMAP_SEED = 19
+# float32 operations per bit of a row that the max-log demap needs: a
+# subtract, a square and a minimum per level of the bit's axis, then the
+# difference of the minima, the divide by the noise, the descramble and the
+# add into the softbuffer (the LLR form: the first two of those four)
+DEMAP_OPS_PER_LEVEL, DEMAP_OPS_PER_BIT, DEMAP_LLR_OPS_PER_BIT = 3, 4, 2
+DEMAP_REPLACES = ("srsue_tpu/phy/modulation.py:109", "srsue_tpu/phy/ratematch.py:144")
+
+
+def demap_bound(n, m, nv_elems, qm, e, d=0, r=0, mapped=False) -> dict:
+    """The least time of one demap call on n rows: the m symbols each row
+    needs (complex64) and nv_elems noise values read once, scr [e], the map
+    [m] and inv [d, r] read once, the output written once (softbuffer
+    [n, d], or the LLRs [n, m qm] when d = 0); each of the n e bits costs
+    3 operations per level of its axis and 4 more (2 in the LLR form)."""
+    out = 4 * n * (d if d else m * qm)
+    nbytes = 8 * n * m + 4 * nv_elems + out + (4 * e + 4 * d * r + 4 * m * mapped if d else 0)
+    per_bit = DEMAP_OPS_PER_LEVEL * (1 << (qm // 2)) + (
+        DEMAP_OPS_PER_BIT if d else DEMAP_LLR_OPS_PER_BIT)
+    return bound(nbytes, n * e * per_bit)
+
+
+def tm2_symbols(torch, rx, clean, iq, dev):
+    """The Alamouti-combined PDSCH symbols and noise of phase 13's subframes,
+    as rx.make_tm2_rx computes them."""
+    from srsue_tpu_torch.phy import chest, equalize, ofdm
+    from srsue_tpu_torch.phy.pdsch import PdschCodec
+
+    codec = PdschCodec(clean.cell, clean.grant, rnti=clean.rnti, subframe=clean.subframe,
+                       cfi=rx.CFI, device=dev)
+    grid = ofdm.demodulate(clean.cell, iq)
+    h0, nvar, _ = chest.estimate(clean.cell, grid, clean.subframe, port=0)
+    h1, _, _ = chest.estimate(clean.cell, grid, clean.subframe, port=1)
+    return codec, equalize.alamouti_combine(codec.extract_re(grid), codec.extract_re(h0),
+                                            codec.extract_re(h1), nvar)
+
+
+def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
+    """Phase 19: (a) the demap kernel against its plain version on the card at
+    atol 0 (bit for bit), each compared call one launch, on every caller's
+    shapes; (b) every (form, qm, R) that phases 3-18 launched at was held in
+    (a); (c) the flagship and the uplink B=256 calls timed by CUDA events and
+    by device time against the plain composition, beside their bounds, and
+    the stage and chains around them, kernel and plain in one call; (d) phase
+    3's chain, phase 9's blind run and phase 14's B=256 decode again with the
+    same decisions, and the UCI decisions. Returns the kernels-line entry."""
+    from srsue_tpu_torch.kernels import demap
+    from srsue_tpu_torch.phy import chest, control, dci, equalize, modulation, ofdm, ra, ratematch
+    from srsue_tpu_torch.phy.cell import Cell, UlGrant
+    from srsue_tpu_torch.phy.pdsch import PdschCodec
+    from srsue_tpu_torch.phy.pusch import PuschCodec
+    from srsue_tpu_torch.phy.ue_ul_ctrl import UlCtrl, UlCtrlConfig
+
+    tag = "phase 19"
+    rng = np.random.default_rng(DEMAP_SEED)
+    prior = {sh[:3] for sh in demap.shapes}  # (form, qm, R) of phases 3-18
+    rows, held, launched = [], set(), 0
+
+    def case(label, sym, nv, qm, scr=None, inv=None, sym_map=None, lo=0, hi=None):
+        """Kernel and plain version on the same inputs, bit for bit."""
+        nonlocal launched
+        before = demap.launches
+        if inv is None:
+            got = modulation.demodulate_soft(sym, qm, nv)
+            ref = modulation.demodulate_soft_plain(sym, qm, nv)
+            form, r = "llr", 0
+        else:
+            got = ratematch.demap_dematch(sym, nv, qm, scr, inv, sym_map, lo, hi)
+            ref = ratematch.demap_dematch_plain(sym, nv, qm, scr, inv, sym_map, lo, hi)
+            form, r = "softbuffer", inv.shape[1]
+        torch.cuda.synchronize()
+        check(demap.launches == before + 1, f"{tag}: (a) {label}: "
+              f"{demap.launches - before} demap launches, expected 1")
+        launched += 1
+        n_diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        check(n_diff == 0, f"{tag}: (a) {label}: {n_diff} values differ from the plain version "
+              f"(max |diff| {err:.3g})")
+        n = got.numel() // got.shape[-1]
+        noise = ("scalar" if not isinstance(nv, torch.Tensor) else
+                 "per row" if nv.shape[-1] == 1 or nv.stride(-1) == 0 else "per RE")
+        rows.append({"case": label, "form": form, "qm": qm, "R": r, "N": n, "D": got.shape[-1],
+                     "noise": noise, "max_abs_err": err})
+        held.add((form, qm, r))
+        print(f"{tag}: (a) {label}: {form} form, qm {qm}, R {r}, N {n}, width "
+              f"{got.shape[-1]}, {noise} noise: kernel = plain bit for bit (atol 0)", flush=True)
+        return got
+
+    def noisy_syms(n, m, qm, sigma=0.2):
+        bits = rng.integers(0, 2, (n, m * qm)).astype(np.uint8)
+        x = modulation.modulate_np(bits, qm)
+        x = x + sigma * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+        return torch.as_tensor(x.astype(np.complex64), device=dev)
+
+    def per_re(n, m):
+        return torch.as_tensor((0.005 + 0.05 * rng.random((n, m))).astype(np.float32),
+                               device=dev)
+
+    def pdsch_case(label, codec, x, nv):
+        for (k, first, count, lo, hi, _), inv32 in zip(codec.groups, codec._inv32):
+            case(f"{label}, K={k} x {count}", x, nv, codec.qm, codec._scr, inv32, lo=lo, hi=hi)
+
+    # (a) the callers' shapes
+    iq3, want3, iters3 = kept["entry"]
+    cell, codec = entry.flagship(dev)
+    front, dd, _, _ = entry.stages(cell, codec, entry.SUBFRAME)
+    x3, nv3 = front(iq3)
+    (k0, _, count0, lo0, hi0, inv0), = codec.groups
+    inv0_32 = codec._inv32[0]
+    case(f"flagship PDSCH 64QAM B={BATCH} (entry's symbols)", x3, nv3, 6, codec._scr, inv0_32,
+         lo=lo0, hi=hi0)
+    case(f"flagship PDSCH 64QAM B={BATCH}, LLR form", x3, nv3, 6)
+    case(f"flagship PDSCH 64QAM B={BATCH}, scalar noise", x3, 0.01, 6, codec._scr, inv0_32, lo=lo0,
+         hi=hi0)
+    g16 = PdschCodec(Cell(n_prb=100, cell_id=rx.CELL_ID), ra.dl_grant(100, 16), rx.RNTI,
+                     entry.SUBFRAME, device=dev)
+    pdsch_case(f"PDSCH 100 PRB MCS 16 (16QAM) B={BATCH}, per-row noise", g16,
+               noisy_syms(BATCH, g16.n_re, 4), per_re(BATCH, 1))
+    tm2_clean, tm2_iq = kept["tm2"]
+    tm2_codec, (x13, nv13) = tm2_symbols(torch, rx, tm2_clean, tm2_iq, dev)
+    pdsch_case(f"TM2 flagship's combined symbols B={BATCH}", tm2_codec, x13, nv13)
+    clean, noisy, blind = kept["blind"]
+    iq9 = torch.as_tensor(noisy, device=dev)
+    grid = ofdm.demodulate(clean.cell, iq9)
+    h, nvar, _ = chest.estimate(clean.cell, grid, clean.subframe)
+    g_eq, nv_grid = equalize.zf(grid, h, nvar)
+    n_1a = dci.size_0_1a(clean.cell.n_prb)
+    targs = (clean.cell, clean.subframe, clean.cfi, clean.rnti, n_1a, True, dev)
+    _, _, scr_b, _, _, _ = control._blind_tables(*targs)
+    res32, buf32 = control._blind_tables32(*targs)
+    y9, nv9 = control._flat_grid(g_eq, nv_grid)
+    case("PDCCH blind search 100 PRB, DCI 1A, L=1-8 (phase 9's grid)", y9, nv9, 2, scr_b,
+         buf32, sym_map=res32)
+    idx, _, _ = control._pcfich_tensors(clean.cell, clean.subframe, dev)
+    y_p, nv_p = control._gather_re(g_eq, nv_grid, idx)
+    case("PCFICH's 32 LLRs (phase 9's grid)", y_p, nv_p, 2)
+    case("PBCH's 480 LLRs (240 symbols)", noisy_syms(1, 240, 2)[0], per_re(1, 240)[0], 2)
+    small = Cell(n_prb=6, cell_id=7)
+    g_small = ra.dl_grant(6, 0, n_prb_alloc=2)
+    pd2 = PdschCodec(small, g_small, 0x42, 1, device=dev)
+    pdsch_case("PDSCH 6 PRB cell, 2 PRB MCS 0", pd2, noisy_syms(BATCH, pd2.n_re, 2, 0.6),
+               per_re(BATCH, pd2.n_re))
+    g1 = ra.dl_grant(6, 0, n_prb_alloc=1)
+    pu1 = PuschCodec(small, UlGrant(n_prb=1, prb_start=g1.prb_start, mcs=g1.mcs,
+                                    mod_order=g1.mod_order, tbs=g1.tbs), 0x42, 2, device=dev)
+    case("PUSCH 1 PRB MCS 0", noisy_syms(BATCH, pu1.n_re, 2, 0.6), per_re(BATCH, pu1.n_re), 2,
+         pu1._scr_erase, pu1._inv32[0], sym_map=pu1._data_pos, lo=0, hi=pu1.G)
+    iq14, want14, iters14 = kept["pusch"]
+    cell_ul, grants = ul_grants(rx)
+    pu = PuschCodec(cell_ul, grants["full"], rx.RNTI, rx.UL_SUBFRAME, device=dev)
+    x14, nv14 = pu.equalize_sf(iq14)
+    (_, _, _, lo14, hi14, _), = pu.groups
+    case(f"PUSCH 100 PRB MCS 28 B={BATCH} (phase 14's symbols)", x14, nv14, 6, pu._scr_erase,
+         pu._inv32[0], sym_map=pu._data_pos, lo=lo14, hi=hi14)
+    ctl = UlCtrl(UlCtrlConfig(cqi_config_index=2, n_prb=cell_ul.n_prb))
+    for _ in range(30):
+        ctl.update_snr(SNR_DB)
+    cqi = ctl.cqi_for_tti(0)
+    pay_u = rng.integers(0, 2, grants["bench"].tbs).astype(np.uint8)
+    uci = {}
+    for ack in (True, False):
+        pu_u = PuschCodec(cell_ul, grants["bench"], rx.RNTI, rx.UL_SUBFRAME, n_cqi_bits=len(cqi),
+                          with_ack=True, device=dev)
+        wave = pu_u.encode_sf_uci(pay_u, cqi_bits=cqi, ack=ack)
+        p_sig = float(np.mean(np.abs(wave) ** 2)) * cell_ul.nfft / pu_u.m_sc
+        iq_u = torch.as_tensor(rx.add_noise(rng, wave[None], p_sig, SNR_DB), device=dev)
+        xu, nvu = pu_u.equalize_sf(iq_u)
+        for (k, _, count, lo, hi, _), inv32 in zip(pu_u.groups, pu_u._inv32):
+            case(f"PUSCH 50 PRB MCS 20, ACK={ack} + {len(cqi)} CQI bits (erasures), B=1, "
+                 f"K={k} x {count}", xu, nvu, pu_u.qm, pu_u._scr_erase, inv32,
+                 sym_map=pu_u._data_pos, lo=lo, hi=hi)
+        case(f"PUSCH 50 PRB MCS 20 CQI symbols' LLRs, ACK={ack}", xu[:, pu_u._cqi_pos],
+             nvu[:, pu_u._cqi_pos], pu_u.qm)
+        pay, ok, _ = pu_u.decode_sf(iq_u)
+        uci[ack] = pu_u.decode_uci()
+        check(bool(ok.all()) and bool((pay == torch.as_tensor(pay_u, device=dev)).all())
+              and uci[ack][1] is ack and bool((uci[ack][0] == cqi).all()),
+              f"{tag}: (d) UCI ACK={ack}: found {uci[ack]}, CQI sent {cqi}")
+        pc = PuschCodec(cell_ul, grants["bench"], rx.RNTI, rx.UL_SUBFRAME, n_cqi_bits=len(cqi),
+                        with_ack=True, device="cpu")
+        pc.dematch_sf(iq_u.cpu())
+        u_cpu = pc.decode_uci()
+        check(u_cpu[1] is uci[ack][1] and bool((u_cpu[0] == uci[ack][0]).all()),
+              f"{tag}: (d) UCI ACK={ack}: card {uci[ack]}, CPU {u_cpu}")
+
+    # (a) the rest of what phases 3-18 launched at: a synthetic repeat table of
+    # each (form, qm, R) no caller above held
+    for form, qm, r in sorted(prior - held):
+        m = 97
+        x_s, nv_s = noisy_syms(64, m, qm, 0.4), per_re(64, m)
+        if form == "llr":
+            case(f"LLR form qm {qm}, seeded symbols", x_s, nv_s, qm)
+            continue
+        e = m * qm
+        d = -(-e // r)  # the most repeated of d sent positions: r times
+        idx_m = rng.permutation(np.tile(rng.permutation(d + 5)[:d], r)[:e])
+        inv_s = torch.as_tensor(ratematch.inverse_index(idx_m, d + 5).astype(np.int32),
+                                device=dev)
+        scr_s = torch.as_tensor((1.0 - 2.0 * rng.integers(0, 2, e)).astype(np.float32),
+                                device=dev)
+        case(f"seeded repeat table, qm {qm}, R {r}", x_s, nv_s, qm, scr_s, inv_s)
+    # (b)
+    check(prior <= held, f"{tag}: (b) phases 3-18 launched at (form, qm, R) "
+          f"{sorted(prior - held)}, not held in (a)")
+    print(f"{tag}: (b) every launch of phases 3-18 ran at a (form, qm, R) held in (a): "
+          f"{sorted(prior)}; {launched} compared calls, each one launch", flush=True)
+
+    # (c) times: the kernel alone and with its wrapper, the plain composition
+    def demap_fl():
+        return ratematch.demap_dematch(x3, nv3, 6, codec._scr, inv0_32, lo=lo0, hi=hi0)
+
+    def demap_fl_plain():
+        return ratematch.demap_dematch_plain(x3, nv3, 6, codec._scr, inv0, lo=lo0, hi=hi0)
+
+    def demap_ul():
+        return ratematch.demap_dematch(x14, nv14, 6, pu._scr_erase, pu._inv32[0],
+                                       sym_map=pu._data_pos, lo=lo14, hi=hi14)
+
+    def demap_ul_plain():
+        return ratematch.demap_dematch_plain(x14, nv14, 6, pu._scr_erase, pu.groups[0][5],
+                                             sym_map=pu._data_pos, lo=lo14, hi=hi14)
+
+    timed = {}
+    for label, fn, plain, b in (
+            ("flagship PDSCH", demap_fl, demap_fl_plain,
+             demap_bound(BATCH, codec.n_re, nv3.numel(), 6, hi0 - lo0, inv0.shape[0], 1)),
+            ("uplink PUSCH", demap_ul, demap_ul_plain,
+             demap_bound(BATCH, pu.n_re, nv14.numel(), 6, hi14 - lo14, pu.groups[0][5].shape[0],
+                         1, mapped=True))):
+        ms = [cuda_ms(torch, fn, reps=20), cuda_ms(torch, fn, reps=20)]
+        dms = device_ms(fn, 20, "demap")
+        plain_ms = cuda_ms(torch, plain, reps=3)
+        timed[label] = {"ms": ms, **dms, "plain_ms": plain_ms, **b}
+        print(f"{tag}: (c) {label} call B={BATCH}: kernel {ms[0]:.4f} / {ms[1]:.4f} ms (CUDA "
+              f"events, wrapper included), device {dms['device_ms']:.4f} ms "
+              f"({dms['device_ms_by']}); plain composition {plain_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+
+    def dd_plain(x, nv):
+        return codec.dematch(modulation.demodulate_soft_plain(x, 6, nv) * codec._scr)
+
+    stage = {"kernel": cuda_ms(torch, lambda: dd(x3, nv3), reps=5),
+             "plain": cuda_ms(torch, lambda: dd_plain(x3, nv3), reps=5)}
+    stage["kernel again"] = cuda_ms(torch, lambda: dd(x3, nv3), reps=5)
+    _, codec_f8 = entry.flagship(dev, forced=True)
+    front8, dd8, turbo8, crc8 = entry.stages(cell, codec_f8, entry.SUBFRAME)
+
+    def forced(demap_stage):
+        def run():
+            hard, blk_ok, _ = turbo8(demap_stage(*front8(iq3)))
+            return crc8(hard, blk_ok)
+        return run
+
+    pay8, ok8 = forced(dd8)()
+    check(bool(ok8.all()) and bool((pay8 == want3).all()), f"{tag}: (c) forced 8: not 256/256")
+    chain = {"kernel": cuda_ms(torch, forced(dd8), reps=5),
+             "plain": cuda_ms(torch, forced(dd_plain), reps=5)}
+    chain["kernel again"] = cuda_ms(torch, forced(dd8), reps=5)
+    mbps = {k: int(ok8.sum()) * codec.grant.tbs / v / 1e3 for k, v in chain.items()}
+    print(f"{tag}: (c) phase 3's demap + dematch stage B={BATCH}: kernel {stage['kernel']:.3f} / "
+          f"{stage['kernel again']:.3f} ms, the torch composition it replaced "
+          f"{stage['plain']:.3f} ms; forced 8 chain: kernel {chain['kernel']:.3f} / "
+          f"{chain['kernel again']:.3f} ms/batch = {mbps['kernel']:.1f} / "
+          f"{mbps['kernel again']:.1f} Mbps, with the torch composition {chain['plain']:.3f} "
+          f"ms/batch = {mbps['plain']:.1f} Mbps", flush=True)
+
+    # (d) the same decisions as before
+    fn3 = entry.chain(cell, codec, entry.SUBFRAME)
+    zero_counts(bcjr)
+    pay, ok, iters = fn3(iq3)
+    torch.cuda.synchronize()
+    check(bool(ok.all()) and bool((pay == want3).all()) and bool((iters == iters3).all()),
+          f"{tag}: (d) entry early exit: decisions differ from phase 3's")
+    note_demap("phase 19 entry early exit")
+    fn9 = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
+                     clean.dci_bits, clean.payloads, early_exit=True, eq="zf", device=dev)
+    zero_all(bcjr, viterbi)
+    stats = {k: float(v) for k, v in fn9(iq9).items()}
+    torch.cuda.synchronize()
+    check(stats == blind["zf"][0], f"{tag}: (d) blind chain zf: {stats}, phase 9 "
+          f"{blind['zf'][0]}")
+    note_demap("phase 19 blind chain zf")
+    pay, ok, iters = pu.decode_sf(iq14)
+    torch.cuda.synchronize()
+    check(bool(ok.all()) and bool((pay == want14).all()) and bool((iters == iters14).all()),
+          f"{tag}: (d) uplink B={BATCH}: decisions differ from phase 14's")
+    t_ul = [cuda_ms(torch, lambda: pu.decode_sf(iq14), reps=5) for _ in range(2)]
+    print(f"{tag}: (d) again: entry early exit {BATCH}/{BATCH} TBs bit-exact, iterations = "
+          f"phase 3's; blind chain zf {int(stats['n_dci'])} DCI, {int(stats['cfi_ok'])} CFI, "
+          f"{int(stats['n_ok'])} TBs = phase 9's; uplink decode_sf {BATCH}/{BATCH} bit-exact, "
+          f"iterations = phase 14's, {t_ul[0]:.3f} / {t_ul[1]:.3f} ms/batch; UCI ACK and NACK "
+          f"with CQI {cqi.tolist()} found, card = CPU", flush=True)
+
+    flag_t = timed["flagship PDSCH"]
+    return {"name": "demap", "route": "cuda", "source": "srsue_tpu_torch/csrc/demap.cu",
+            "replaces": " and ".join(DEMAP_REPLACES),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": flag_t["ms"][0], "device_ms": flag_t["device_ms"],
+            "device_ms_by": flag_t["device_ms_by"], "plain_ms": flag_t["plain_ms"],
+            "bound_ms": flag_t["bound_ms"], "bound_by": flag_t["bound_by"],
+            "uplink": {k: timed["uplink PUSCH"][k] for k in
+                       ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+            "stage_ms": stage, "forced8_ms": chain, "uplink_decode_ms": t_ul,
+            "cases": len(rows)}
+
+
 def main_world(torch, np, entry, bcjr, dev, n: int, smi) -> int:
     """`--world N`: phase 2 at the sharded paths' shapes, then phase 16's
     sharded paths at world N over NCCL, one rank per card, and (N even)
@@ -2568,6 +2922,7 @@ def main() -> int:
     warps = {name: build.warps_per_sm(name, 64) for name in build.HALF_KERNELS}
     warps["fused"] = build.warps_per_sm("fused", BATCH * 13, 5824, 64)
     warps["viterbi"] = build.warps_per_sm("viterbi", 44)
+    warps["demap"] = build.warps_per_sm("demap", 0, 6)  # the softbuffer form at 64QAM
     usage = ptxas_usage(lib.log)
     for name, inst in (("v4", "F32"), ("v5", "BF2")):
         regs = [u for k, u in usage.items() if "bcjr_half_r4_kernel" in k and inst in k]
@@ -2595,7 +2950,7 @@ def main() -> int:
             extra += (sh,)
             held.add(sh[1:])
     rows = phase_kernel(torch, bcjr, dev, extra)
-    fn, iq, want, launches = phase_chain(torch, entry, bcjr, dev)
+    fn, iq, want, launches, iters = phase_chain(torch, entry, bcjr, dev)
 
     bad = iq[:8].clone()
     bad[:, 1000:3000] = 0
@@ -2619,21 +2974,25 @@ def main() -> int:
     vit_launches = blind["zf"][2]
     phase_ue_dl(torch, np, entry, UeDl, DlHarq, PdschCodec, enb_tx, bcjr, viterbi, dev,
                 clean, noisy)
-    del iq, want, fn
+    del fn
     cold1 = phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports=1, phase=11,
                              shapes=cold[1])
     cold2 = phase_cold_start(torch, np, rx, bcjr, viterbi, dev, n_ports=2, phase=12,
                              shapes=cold[2])
     phase_silence(np, dev)
-    tm2 = phase_tm2(torch, rx, bcjr, viterbi, dev, variant_ms["fused"])
-    ul_launches = phase_uplink(torch, np, rx, bcjr, viterbi, dev, held)
+    tm2, tm2_kept = phase_tm2(torch, rx, bcjr, viterbi, dev, variant_ms["fused"])
+    ul_launches, ul_kept = phase_uplink(torch, np, rx, bcjr, viterbi, dev, held)
     ota_launches = phase_ota(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
     shard_launches = phase_shard(torch, np, entry, bcjr, dev, held, WORLDS)
     shard_launches.update(phase_tools(torch, np, entry, bcjr, dev, held))
     mob_launches = phase_mobility(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
     f7 = phase_fault7(torch, np, rx, bcjr, viterbi, dev, clean, noisy, blind)
-    del clean, noisy
     mh_launches = phase_multihost(torch, np, dev, held, 2, 1, "gloo", "two nodes on one card:")
+    demap_by_path = dict(DEMAP_BY_PATH)  # phases 3-18
+    demap_row = phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, {
+        "entry": (iq, want, iters), "tm2": tm2_kept, "blind": (clean, noisy, blind),
+        "pusch": ul_kept})
+    del clean, noisy, iq, want, tm2_kept, ul_kept
 
     flag = rows[0]
     kernels = [{
@@ -2674,7 +3033,10 @@ def main() -> int:
                                          "ue_mobility": mob_launches["viterbi"],
                                          **{f"fault 7 blind chain {k}": v[1]
                                             for k, v in f7.items()}}})
-    for k in kernels:  # no single PyTorch call computes a max-log BCJR or a Viterbi
+    kernels.append({**demap_row, "launches": demap_by_path["entry early exit"],
+                    "warps_per_sm": warps["demap"],
+                    "launches_by_path": demap_by_path})
+    for k in kernels:  # no single PyTorch call computes a max-log BCJR, a Viterbi or a demap
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0], flush=True)

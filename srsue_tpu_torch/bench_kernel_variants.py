@@ -45,7 +45,8 @@ VITERBI_SHAPE = ("blind search B=4608 n=44", 4608, 44)
 # the name of each instance's __global__ function in csrc/, as the profiler shows it
 KERNEL_NAMES = {"r2max": "bcjr_half_kernel", "v2v3": "bcjr_half_kernel",
                 "v4": "bcjr_half_r4_kernel", "v5": "bcjr_half_r4_kernel",
-                "fused": "bcjr_half_fused_kernel", "viterbi": "viterbi_kernel"}
+                "fused": "bcjr_half_fused_kernel", "viterbi": "viterbi_kernel",
+                "demap": "demap_dematch_kernel"}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:

@@ -32,7 +32,7 @@ def stages(cell: Cell, codec: PdschCodec, subframe: int):
         return equalized(cell, codec, subframe, iq)[:2]
 
     def demap_dematch(x_eq: torch.Tensor, nv_eff: torch.Tensor):
-        return codec.dematch(codec.demap_llrs(x_eq, nv_eff))
+        return codec.demap_dematch(x_eq, nv_eff)
 
     return frontend, demap_dematch, codec.decode_blocks, codec.assemble_tb
 

@@ -57,7 +57,7 @@ def nvcc_path() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     for name in HALF_KERNELS:
         fn = getattr(lib, f"srsue_bcjr_half_{name}")
         fn.argtypes = [p, p, p, p, p, p, p, ll, i, p]
@@ -66,6 +66,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srsue_bcjr_half_fused.restype = ctypes.c_int
     lib.srsue_viterbi.argtypes = [p, p, ll, i, p]
     lib.srsue_viterbi.restype = ctypes.c_int
+    lib.srsue_demap_dematch.argtypes = [p, ll, p, ll, ll, f, p, i, p, p, ll, ll, p, i, ll, ll,
+                                        p, p]
+    lib.srsue_demap_dematch.restype = ctypes.c_int
+    lib.srsue_demap_llr.argtypes = [p, ll, p, ll, ll, f, p, i, ll, p, p]
+    lib.srsue_demap_llr.restype = ctypes.c_int
     # resident warps per SM of each kernel, by the CUDA occupancy calculator
     for name in HALF_KERNELS:
         fn = getattr(lib, f"srsue_bcjr_half_{name}_warps")
@@ -75,6 +80,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srsue_bcjr_half_fused_warps.restype = ctypes.c_int
     lib.srsue_viterbi_warps.argtypes = [i, p]
     lib.srsue_viterbi_warps.restype = ctypes.c_int
+    lib.srsue_demap_warps.argtypes = [i, i, p]
+    lib.srsue_demap_warps.restype = ctypes.c_int
 
 
 def _compile(nvcc: str, sources: list[Path], so: Path) -> str:
@@ -131,10 +138,12 @@ def warps_per_sm(kernel: str, *args: int) -> int:
     """Warps of a kernel resident on one SM of the current CUDA device, by
     the CUDA occupancy calculator for the launch configuration its wrapper
     would use: ``kernel`` is a half instance of HALF_KERNELS (args: lw),
-    ``"fused"`` (args: B, K, lw) or ``"viterbi"`` (args: n)."""
+    ``"fused"`` (args: B, K, lw), ``"viterbi"`` (args: n) or ``"demap"``
+    (args: llr_form 0 for the softbuffer form or 1 for the LLR form, qm)."""
     lib = load().lib
-    fn = (lib.srsue_viterbi_warps if kernel == "viterbi"
-          else getattr(lib, f"srsue_bcjr_half_{kernel}_warps"))
+    fn = {"viterbi": lib.srsue_viterbi_warps, "demap": lib.srsue_demap_warps}.get(kernel)
+    if fn is None:
+        fn = getattr(lib, f"srsue_bcjr_half_{kernel}_warps")
     out = ctypes.c_int(0)
     rc = fn(*args, ctypes.byref(out))
     if rc != 0:

@@ -144,17 +144,25 @@ def _pcfich_tensors(cell: Cell, subframe: int, device: torch.device):
     return idx, s, cw
 
 
-def _gather_re(grid_eq: torch.Tensor, nv_eff, idx: torch.Tensor):
-    """(symbols [..., m], noise) at the flat RE indices idx [m] of an
-    equalized [..., n_sym, n_sc] grid. A grid-shaped nv_eff is gathered
-    too; a batch-shaped one [...] gains a trailing axis, so the noise
-    always broadcasts against the symbols; a scalar stays a scalar."""
+def _flat_grid(grid_eq: torch.Tensor, nv_eff):
+    """(symbols [..., n_sym * n_sc], noise) of an equalized [..., n_sym,
+    n_sc] grid: a grid-shaped nv_eff flattened the same way, a batch-shaped
+    one [...] with a trailing axis, a scalar as it is; the noise broadcasts
+    against the symbols."""
     lead = grid_eq.shape[:-2]
-    y = grid_eq.reshape(lead + (-1,))[..., idx]
+    y = grid_eq.reshape(lead + (-1,))
     nv = torch.as_tensor(nv_eff, dtype=torch.float32, device=grid_eq.device)
     if nv.ndim >= 2 and nv.shape[-2:] == grid_eq.shape[-2:]:
-        return y, nv.reshape(nv.shape[:-2] + (-1,))[..., idx]
+        return y, nv.reshape(nv.shape[:-2] + (-1,))
     return y, (nv[..., None] if nv.ndim else nv)
+
+
+def _gather_re(grid_eq: torch.Tensor, nv_eff, idx: torch.Tensor):
+    """(symbols [..., m], noise) at the flat RE indices idx [m] of an
+    equalized [..., n_sym, n_sc] grid: ``_flat_grid``'s, with a grid-shaped
+    noise gathered too."""
+    y, nv = _flat_grid(grid_eq, nv_eff)
+    return y[..., idx], (nv[..., idx] if nv.ndim and nv.shape[-1] > 1 else nv)
 
 
 def pcfich_decode(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int):
@@ -380,6 +388,15 @@ def _blind_tables(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
     return (len(cands), *(torch.as_tensor(x, device=device) for x in (res, scr, buf, m, mask)))
 
 
+@functools.lru_cache(maxsize=64)
+def _blind_tables32(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
+                    ue_specific: bool, device: torch.device):
+    """int32 copies of ``_blind_tables``' RE index and inverse index, as the
+    demap kernel reads them."""
+    _, res, _, buf, _, _ = _blind_tables(cell, subframe, cfi, rnti, dci_len, ue_specific, device)
+    return res.to(torch.int32), buf.to(torch.int32)
+
+
 def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
                       cfi: int, rnti: int, dci_len: int, ue_specific: bool = True):
     """Blind DCI search over every search-space candidate of every batch
@@ -388,19 +405,22 @@ def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
     grid_eq: [..., n_sym_sf, n_sc] equalized grid(s); nv_eff grid-shaped,
     batch-shaped or scalar. Returns (hard [..., n_cand, dci_len] uint8
     payloads, ok [..., n_cand] bool RNTI-masked CRC16 pass) in the order
-    of ``search_space_candidates``. One gather, QPSK demap, descramble and
-    dematch fill every candidate's softbuffer (the repeats of a position at
+    of ``search_space_candidates``. One ``ratematch.demap_dematch`` (QPSK
+    demap of the candidates' REs through the RE map, descramble and
+    dematch; on the card one launch of the demap kernel) fills every
+    candidate's softbuffer (the repeats of a position at
     L >= 2 sum in the order sent, from 0.0: the same bits on every device);
     one ``convcode.decode`` call decodes them all; the CRC16 is
     one float32 GF(2) product, exact in full float32
     (``utils.device.require_cuda`` turns TF32 off)."""
-    n_cand, res, scr, buf, crc_m, mask = _blind_tables(cell, subframe, cfi, rnti, dci_len,
-                                                       ue_specific, grid_eq.device)
+    n_cand, _, scr, _, crc_m, mask = _blind_tables(cell, subframe, cfi, rnti, dci_len,
+                                                   ue_specific, grid_eq.device)
+    res32, buf32 = _blind_tables32(cell, subframe, cfi, rnti, dci_len, ue_specific,
+                                   grid_eq.device)
     n_coded = dci_len + 16
     lead = grid_eq.shape[:-2]
-    y, nv = _gather_re(grid_eq, nv_eff, res)
-    llr = modulation.demodulate_soft(y, 2, nv) * scr  # [..., 2M]
-    buffers = ratematch.dematch(llr, buf)
+    y, nv = _flat_grid(grid_eq, nv_eff)
+    buffers = ratematch.demap_dematch(y, nv, 2, scr, buf32, sym_map=res32)
     flat = buffers.reshape(-1, 3, n_coded).transpose(1, 2).contiguous()
     hard = convcode.decode(flat).reshape(lead + (n_cand, n_coded))
     syn = torch.remainder(torch.round(hard.to(torch.float32) @ crc_m) + mask, 2.0)

@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels import demap as demap_kernel
 from .cell import MOD_16QAM, MOD_64QAM, MOD_BPSK, MOD_QPSK
 
 _A16 = 1.0 / np.sqrt(10.0)
@@ -80,9 +81,16 @@ def _pam_tensors(mod_order: int, device: torch.device):
     return torch.as_tensor(lv, device=device), torch.tensor(1e30, device=device), masks
 
 
-def demodulate_soft(sym: torch.Tensor, mod_order: int,
-                    noise_var: torch.Tensor | float = 1.0) -> torch.Tensor:
-    """Exact max-log LLRs: [..., n] complex -> [..., n*Qm] float32.
+def levels(mod_order: int, device: torch.device) -> torch.Tensor:
+    """The per-axis PAM levels [2^(Qm/2)] float32 on `device`, indexed by the
+    axis's bits (sign first, MSB first): the table the demap kernel reads."""
+    return _pam_tensors(mod_order, device)[0]
+
+
+def demodulate_soft_plain(sym: torch.Tensor, mod_order: int,
+                          noise_var: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """Exact max-log LLRs in torch ops: [..., n] complex -> [..., n*Qm]
+    float32, the plain version of the kernel ``demodulate_soft`` launches.
 
     Per bit, (min over levels with bit 1 - min over levels with bit 0) of
     the squared distance, divided by ``noise_var`` (broadcast against the
@@ -101,6 +109,33 @@ def demodulate_soft(sym: torch.Tensor, mod_order: int,
     nv = torch.as_tensor(noise_var, dtype=llr.dtype, device=sym.device)
     llr = llr / torch.clamp_min(nv[..., None] if nv.ndim else nv, 1e-9)
     return llr.reshape(sym.shape[:-1] + (-1,))
+
+
+def kernel_noise(noise_var, device: torch.device):
+    """The noise as the demap kernel takes it: a Python float for a number
+    (rounded to float32 as the plain version's ``as_tensor`` rounds it), a
+    tensor as it is (the kernel's wrapper checks its type and device), any
+    other array a float32 tensor on `device`."""
+    if isinstance(noise_var, torch.Tensor):
+        return noise_var
+    if np.ndim(noise_var) == 0:
+        return float(noise_var)
+    return torch.as_tensor(noise_var, dtype=torch.float32, device=device)
+
+
+def demodulate_soft(sym: torch.Tensor, mod_order: int,
+                    noise_var: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """Exact max-log LLRs: [..., n] complex -> [..., n*Qm] float32 (see
+    ``demodulate_soft_plain``). CPU tensors take the plain version; CUDA
+    tensors launch the LLR form of the kernel ``csrc/demap.cu`` on their
+    contiguous copy (``kernels/demap.py``, which raises on what it cannot
+    take); any other device raises."""
+    if sym.device.type == "cuda":
+        return demap_kernel.demap_llr_cuda(sym.contiguous(), kernel_noise(noise_var, sym.device),
+                                           mod_order, levels(mod_order, sym.device))
+    if sym.device.type == "cpu":
+        return demodulate_soft_plain(sym, mod_order, noise_var)
+    raise ValueError(f"demodulate_soft: unsupported device {sym.device}")
 
 
 @functools.lru_cache(maxsize=32)

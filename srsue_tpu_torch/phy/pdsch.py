@@ -117,6 +117,8 @@ class PdschCodec:
                                 torch.as_tensor(ratematch.inverse_index(idx, count * d_len),
                                                 device=dev)))
             b += count
+        # int32 copies of the groups' inverse tables, as the demap kernel reads them
+        self._inv32 = [g[5].to(torch.int32) for g in self.groups]
         # TB bits (+ CRC24A) as positions in the concatenated hard blocks
         parts, off = [], 0
         for i, k in enumerate(p.block_ks):
@@ -163,17 +165,27 @@ class PdschCodec:
         """Equalized PDSCH symbols -> descrambled LLRs [..., G]."""
         return modulation.demodulate_soft(x_eq, self.qm, nv_eff) * self._scr
 
+    def _filler(self, first: int, buf: torch.Tensor) -> torch.Tensor:
+        if first == 0 and self.plan.f:
+            buf[..., 0, :self.plan.f] += FILLER_LLR
+        return buf
+
     def dematch(self, llrs: torch.Tensor) -> list[torch.Tensor]:
         """Descrambled LLRs [..., G] -> one softbuffer [..., count, 3(K+4)]
         per K-group, with the filler prior in block 0."""
-        out = []
-        for k, first, count, lo, hi, inv in self.groups:
-            buf = ratematch.dematch(llrs[..., lo:hi], inv)
-            buf = buf.reshape(llrs.shape[:-1] + (count, 3 * (k + 4)))
-            if first == 0 and self.plan.f:
-                buf[..., 0, :self.plan.f] += FILLER_LLR
-            out.append(buf)
-        return out
+        return [self._filler(first, ratematch.dematch(llrs[..., lo:hi], inv).reshape(
+                    llrs.shape[:-1] + (count, 3 * (k + 4))))
+                for k, first, count, lo, hi, inv in self.groups]
+
+    def demap_dematch(self, x_eq: torch.Tensor, nv_eff) -> list[torch.Tensor]:
+        """Equalized symbols [..., n_re] and their noise -> the softbuffers
+        of ``dematch(demap_llrs(x_eq, nv_eff))``, bit for bit, by one
+        ``ratematch.demap_dematch`` per K-group (on the card one launch of
+        the demap kernel each)."""
+        return [self._filler(first, ratematch.demap_dematch(
+                    x_eq, nv_eff, self.qm, self._scr, inv32, lo=lo, hi=hi).reshape(
+                    x_eq.shape[:-1] + (count, 3 * (k + 4))))
+                for (k, first, count, lo, hi, _), inv32 in zip(self.groups, self._inv32)]
 
     def decode_blocks(self, groups: list[torch.Tensor]):
         """Softbuffer groups -> (hard [..., sum K] uint8, blk_ok [..., C]
@@ -218,7 +230,7 @@ class PdschCodec:
     def decode(self, x_eq: torch.Tensor, nv_eff):
         """Equalized symbols [..., n_re] and per-RE noise -> (payload,
         tb_ok, blk_ok, iters)."""
-        return self.decode_softbuffers(self.dematch(self.demap_llrs(x_eq, nv_eff)))
+        return self.decode_softbuffers(self.demap_dematch(x_eq, nv_eff))
 
 
 @functools.lru_cache(maxsize=64)

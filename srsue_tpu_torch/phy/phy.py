@@ -516,7 +516,7 @@ class Phy:
             x_eq, nv_eff = equalize.zf(
                 codec.extract_re(grid), codec.extract_re(h), nvar
             )
-        softbuffers = codec.dematch(codec.demap_llrs(x_eq[None], nv_eff[None]))
+        softbuffers = codec.demap_dematch(x_eq[None], nv_eff[None])
         if self.mac is None:
             return
         pid = d.harq_pid if hasattr(d, "harq_pid") else 0

@@ -150,9 +150,12 @@ class PuschCodec:
         self._tb_pos = torch.as_tensor(np.concatenate(parts)[:grant.tbs], device=dev)
         self._blk_crc = {k: torch.as_tensor(m, dtype=torch.float32, device=dev)
                          for k, m in self.blk_crc.items()}
-        self._scr = torch.as_tensor(self.scr_pm1, device=dev)
-        self._erase = torch.as_tensor(self._ack_erase, device=dev)
-        self._data_pos = torch.as_tensor(self.data_pos, device=dev)
+        # the scrambling signs times the ACK's erasures (+-1, +-0 where the
+        # ACK punctured a data bit), and int32 tables, as the demap kernel
+        # reads them
+        self._scr_erase = torch.as_tensor(self.scr_pm1 * self._ack_erase, device=dev)
+        self._inv32 = [g[5].to(torch.int32) for g in self.groups]
+        self._data_pos = torch.as_tensor(self.data_pos.astype(np.int32), device=dev)
         self._cqi_pos = torch.as_tensor(self.cqi_pos, device=dev)
         self._ack_pos = torch.as_tensor(self.ack_pos, device=dev)
         self.data_sym = np.asarray([s for s in range(cell.n_sym_sf) if s not in N_DMRS_SYM])
@@ -218,13 +221,10 @@ class PuschCodec:
                                                        device=self.device)
         return self._dmrs[cyclic_shift]
 
-    def dematch_sf(self, iq, noise_var: float = 1e-4, cyclic_shift: int = 0) -> list:
+    def equalize_sf(self, iq, noise_var: float = 1e-4, cyclic_shift: int = 0):
         """IQ [..., sf_len] (a tensor, or numpy moved to the codec's device)
-        -> per-code-block d-domain softbuffers, each [..., 3(K+4)]: DMRS LS
-        estimate, ZF, IDFT, demap, descramble, ACK erasure, dematch. The
-        softbuffers do not depend on rv, so element-wise addition across
-        retransmissions (each dematched by the codec of its rv) is the
-        eNB's HARQ combining. The UCI LLRs are kept for ``decode_uci``."""
+        -> (syms [..., n_re] complex64, nv [..., n_re] float32): DMRS LS
+        estimate, ZF and the IDFT, with the reference's per-symbol noise."""
         cell, m_sc = self.cell, self.m_sc
         if not isinstance(iq, torch.Tensor):
             iq = torch.as_tensor(np.asarray(iq, np.complex64), device=self.device)
@@ -237,19 +237,33 @@ class PuschCodec:
         x_td = torch.fft.ifft(y * torch.conj(h)[..., None, :] / h2, dim=-1) * math.sqrt(m_sc)
         syms = x_td.reshape(x_td.shape[:-2] + (-1,))
         # the reference's quirk: subcarrier k's noise on time-domain sample k
-        nv_full = (noise_var / h2).expand(y.shape).reshape(syms.shape)
+        return syms, (noise_var / h2).expand(y.shape).reshape(syms.shape)
+
+    def _uci_llrs(self, syms: torch.Tensor, nv: torch.Tensor, pos: torch.Tensor):
+        """[..., len(pos), qm] LLRs of the symbols at stream positions pos."""
+        llr = modulation.demodulate_soft(syms[..., pos], self.qm, nv[..., pos])
+        return llr.reshape(syms.shape[:-1] + (len(pos), self.qm))
+
+    def dematch_sf(self, iq, noise_var: float = 1e-4, cyclic_shift: int = 0) -> list:
+        """IQ [..., sf_len] (a tensor, or numpy moved to the codec's device)
+        -> per-code-block d-domain softbuffers, each [..., 3(K+4)]:
+        ``equalize_sf``, then demap, descramble, ACK erasure and dematch of
+        the data positions, one ``ratematch.demap_dematch`` per K-group (on
+        the card one launch of the demap kernel each). The softbuffers do
+        not depend on rv, so element-wise addition across retransmissions
+        (each dematched by the codec of its rv) is the eNB's HARQ combining.
+        The UCI symbols' LLRs (``modulation.demodulate_soft``) are kept for
+        ``decode_uci``."""
+        syms, nv = self.equalize_sf(iq, noise_var, cyclic_shift)
         lead = syms.shape[:-1]
-        llr_all = modulation.demodulate_soft(syms, self.qm, nv_full).reshape(
-            lead + (self.n_re, self.qm))
-        llr = llr_all[..., self._data_pos, :].reshape(lead + (self.G,)) * self._scr
-        if self.with_ack:  # the ACK punctured these data bits: erasures
-            llr = llr * self._erase
         self._last_uci_llrs = (
-            llr_all[..., self._cqi_pos, :] if self.n_cqi_bits else None,
-            llr_all[..., self._ack_pos, :] if self.with_ack else None)
+            self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
+            self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
         bufs = []
-        for k, first, count, lo, hi, inv in self.groups:
-            buf = ratematch.dematch(llr[..., lo:hi], inv).reshape(lead + (count, 3 * (k + 4)))
+        for (k, first, count, lo, hi, _), inv32 in zip(self.groups, self._inv32):
+            buf = ratematch.demap_dematch(syms, nv, self.qm, self._scr_erase, inv32,
+                                          self._data_pos, lo, hi).reshape(
+                lead + (count, 3 * (k + 4)))
             if first == 0 and self.plan.f:
                 buf[..., 0, :self.plan.f] += FILLER_LLR
             bufs.extend(buf.unbind(-2))

@@ -9,6 +9,11 @@ gather over the map's inverse (``inverse_index``): each position adds its
 repeats in ascending e from 0.0, the order of the CPU's ``index_add_`` and
 of the reference's scatter-add on XLA:CPU, on every device. NULL
 (dummy/filler) positions never appear in an index map.
+
+``demap_dematch`` is the receivers' whole step from equalized symbols to
+softbuffers: max-log demap, descramble and dematch, one launch of the
+kernel ``csrc/demap.cu`` on the card (``demap_dematch_plain`` is its plain
+version).
 """
 
 from __future__ import annotations
@@ -17,6 +22,9 @@ import functools
 
 import numpy as np
 import torch
+
+from ..kernels import demap as demap_kernel
+from . import modulation
 
 C_SB = 32  # sub-block interleaver columns
 
@@ -153,3 +161,49 @@ def dematch(llrs: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     for j in range(1, inv.shape[-1]):
         acc = acc + g[..., j]
     return acc
+
+
+def demap_dematch_plain(sym: torch.Tensor, nv, qm: int, scr: torch.Tensor,
+                        inv: torch.Tensor, sym_map: torch.Tensor | None = None,
+                        lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """The plain version of ``demap_dematch``: the composition the receivers
+    ran in torch ops. The symbols (and the noise, broadcast against them)
+    are taken through the map first: demapping is per symbol, so that is
+    ``demodulate_soft_plain`` followed by the map on the LLRs, as the
+    PUSCH decode applied its data positions. Then the slice [lo, hi) times
+    scr[lo:hi], then ``dematch`` through ``inv``."""
+    if sym_map is not None:
+        idx = sym_map.to(torch.int64)
+        nv = torch.as_tensor(nv, dtype=torch.float32, device=sym.device)
+        sym, nv = sym[..., idx], nv.expand(sym.shape)[..., idx]
+    llr = modulation.demodulate_soft_plain(sym, qm, nv)
+    hi = llr.shape[-1] if hi is None else hi
+    return dematch(llr[..., lo:hi] * scr[lo:hi], inv.to(torch.int64))
+
+
+def demap_dematch(sym: torch.Tensor, nv, qm: int, scr: torch.Tensor, inv: torch.Tensor,
+                  sym_map: torch.Tensor | None = None, lo: int = 0,
+                  hi: int | None = None) -> torch.Tensor:
+    """Equalized symbols [..., S] complex64 and their noise (a number, or a
+    tensor that broadcasts against them) -> softbuffer [..., D] float32.
+
+    Bit e of the codeword is bit e % qm of symbol e // qm, the symbol
+    ``sym[..., sym_map[e // qm]]`` when a map is given; its max-log LLR
+    (``modulation.demodulate_soft``) is multiplied by scr[e] (+-1, 0 for
+    an erased bit). The bits [lo, hi) (hi defaults to every bit of the map
+    or of the symbols) fill position p as 0.0 + llr(lo + inv[p, 0]) + ...,
+    one rounding per add in that order up to the pad, as ``dematch`` sums:
+    ``inv`` [D, R] is ``inverse_index`` of the slice's index map. CPU
+    tensors take ``demap_dematch_plain``; CUDA tensors launch the kernel
+    ``csrc/demap.cu`` once (``kernels/demap.py``: int32 ``inv`` and map,
+    contiguous inputs on the symbols' card, or it raises); any other device
+    raises."""
+    if sym.device.type == "cuda":
+        if hi is None:
+            hi = qm * (sym.shape[-1] if sym_map is None else sym_map.numel())
+        return demap_kernel.demap_dematch_cuda(
+            sym.contiguous(), modulation.kernel_noise(nv, sym.device), qm,
+            modulation.levels(qm, sym.device), scr, inv, sym_map, lo, hi)
+    if sym.device.type == "cpu":
+        return demap_dematch_plain(sym, nv, qm, scr, inv, sym_map, lo, hi)
+    raise ValueError(f"demap_dematch: unsupported device {sym.device}")

@@ -517,3 +517,169 @@ def test_repeated_positions_sum_as_on_the_cpu(cuda_device):
     got = {dev: ratematch.dematch(torch.as_tensor(llr, device=dev), c.groups[0][5])
            for dev, c in pusch.items()}
     np.testing.assert_array_equal(_bits(got[cuda_device]), _bits(got["cpu"]))
+
+
+def _demap_case(name, dev):
+    """(sym, nv, qm, scr, inv, sym_map, lo, hi) of a caller of the demap
+    kernel, its own tables on `dev` and seeded symbols and noise; inv None
+    for the LLR form."""
+    from srsue_tpu_torch import entry
+    from srsue_tpu_torch.phy import control, dci
+    from srsue_tpu_torch.phy.cell import UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCodec
+
+    rng = np.random.default_rng(len(name))
+
+    def rnd_sym(*shape):
+        return torch.as_tensor(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                                * 0.7).astype(np.complex64), device=dev)
+
+    def rnd_nv(*shape):
+        return torch.as_tensor((0.01 + rng.random(shape)).astype(np.float32), device=dev)
+
+    def pdsch(codec, nv):
+        k, first, count, lo, hi, _ = codec.groups[-1]
+        return (rnd_sym(4, codec.n_re), nv(4, codec.n_re), codec.qm, codec._scr,
+                codec._inv32[-1], None, lo, hi)
+
+    def pusch(grant, **kw):
+        c = PuschCodec(Cell(n_prb=6 if grant.n_prb < 6 else 100, cell_id=42), grant, 0x42, 2,
+                       device=dev, **kw)
+        _, _, _, lo, hi, _ = c.groups[0]
+        return (rnd_sym(4, c.n_re), rnd_nv(4, c.n_re), c.qm, c._scr_erase, c._inv32[0],
+                c._data_pos, lo, hi)
+
+    def ul(n_prb, mcs, n_prb_alloc=None):
+        g = ra.dl_grant(n_prb, mcs, n_prb_alloc=n_prb_alloc) if n_prb_alloc else ra.dl_grant(
+            n_prb, mcs)
+        return UlGrant(g.n_prb, g.prb_start, g.mcs, g.mod_order, g.tbs)
+
+    if name == "flagship 64QAM per-RE noise":
+        return pdsch(entry.flagship(dev)[1], rnd_nv)
+    if name == "16QAM scalar noise":
+        codec = PdschCodec(Cell(n_prb=100, cell_id=42), ra.dl_grant(100, 16), 0x1234, 6,
+                           device=dev)
+        return pdsch(codec, lambda *s: 0.37)
+    if name == "2 PRB MCS 0 PDSCH (R=4)":
+        return pdsch(PdschCodec(Cell(n_prb=6, cell_id=7), ra.dl_grant(6, 0, n_prb_alloc=2),
+                                0x42, 1, device=dev), rnd_nv)
+    if name == "blind search 100 PRB (R=5)":
+        cell = Cell(n_prb=100, cell_id=42)
+        args = (cell, 6, 1, 0x1234, dci.size_0_1a(100), True, torch.device(dev))
+        _, _, scr, _, _, _ = control._blind_tables(*args)
+        res32, buf32 = control._blind_tables32(*args)
+        return (rnd_sym(4, cell.n_sym_sf * cell.n_sc), rnd_nv(4, 1), 2, scr, buf32, res32, 0,
+                scr.numel())
+    if name == "1 PRB MCS 0 PUSCH (R=3)":
+        return pusch(ul(6, 0, 1))
+    if name == "PUSCH 50 PRB MCS 20, ACK + CQI erasures":
+        return pusch(ul(50, 20), n_cqi_bits=4, with_ack=True)
+    if name == "PBCH LLRs":
+        return rnd_sym(4, 240), rnd_nv(4, 240), 2, None, None, None, 0, 0
+    return rnd_sym(4, 16), 0.25, 2, None, None, None, 0, 0  # PCFICH, scalar noise
+
+
+DEMAP_CASES = ("flagship 64QAM per-RE noise", "16QAM scalar noise", "2 PRB MCS 0 PDSCH (R=4)",
+               "blind search 100 PRB (R=5)", "1 PRB MCS 0 PUSCH (R=3)",
+               "PUSCH 50 PRB MCS 20, ACK + CQI erasures", "PBCH LLRs", "PCFICH LLRs")
+
+
+@pytest.mark.parametrize("name", DEMAP_CASES)
+def test_demap_kernel_matches_plain(cuda_device, name):
+    """csrc/demap.cu = its plain version at atol 0 (bit for bit), one launch
+    per call, recorded at its (form, qm, R)."""
+    from srsue_tpu_torch.kernels import demap
+    from srsue_tpu_torch.phy import modulation, ratematch
+
+    sym, nv, qm, scr, inv, sym_map, lo, hi = _demap_case(name, cuda_device)
+    before = demap.launches
+    if inv is None:
+        got = modulation.demodulate_soft(sym, qm, nv)
+        ref = modulation.demodulate_soft_plain(sym, qm, nv)
+        form, r = "llr", 0
+    else:
+        got = ratematch.demap_dematch(sym, nv, qm, scr, inv, sym_map, lo, hi)
+        ref = ratematch.demap_dematch_plain(sym, nv, qm, scr, inv, sym_map, lo, hi)
+        form, r = "softbuffer", inv.shape[1]
+    torch.cuda.synchronize()
+    assert demap.launches == before + 1
+    assert (form, qm, r, 4, got.shape[-1]) in demap.shapes
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+def test_demap_wrapper_rejects_bad_input(cuda_device):
+    from srsue_tpu_torch.kernels import demap
+    from srsue_tpu_torch.phy import modulation
+
+    sym = torch.zeros(4, 32, dtype=torch.complex64, device=cuda_device)
+    lv = modulation.levels(2, cuda_device)
+    scr = torch.ones(64, device=cuda_device)
+    inv = torch.arange(64, dtype=torch.int32, device=cuda_device)[:, None]
+    before = demap.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        demap.demap_llr_cuda(sym.t().contiguous().t(), 1.0, 2, lv)
+    with pytest.raises(ValueError, match="contiguous"):
+        demap.demap_dematch_cuda(sym, 1.0, 2, lv, scr, inv.expand(64, 2), None, 0, 64)
+    with pytest.raises(TypeError, match="complex64"):
+        demap.demap_llr_cuda(sym.to(torch.complex128), 1.0, 2, lv)
+    with pytest.raises(TypeError, match="int32"):
+        demap.demap_dematch_cuda(sym, 1.0, 2, lv, scr, inv.long(), None, 0, 64)
+    with pytest.raises(TypeError, match="noise"):
+        demap.demap_llr_cuda(sym, torch.ones(4, 32, dtype=torch.float64, device=cuda_device),
+                             2, lv)
+    with pytest.raises(ValueError, match="qm=3"):
+        demap.demap_llr_cuda(sym, 1.0, 3, lv)
+    with pytest.raises(ValueError, match="cpu"):
+        demap.demap_dematch_cuda(sym, 1.0, 2, lv, scr.cpu(), inv, None, 0, 64)
+    with pytest.raises(ValueError, match="cpu"):
+        demap.demap_llr_cuda(sym, torch.ones(4, 32), 2, lv)
+    with pytest.raises(ValueError, match="slice"):
+        demap.demap_dematch_cuda(sym, 1.0, 2, lv, scr, inv, None, 0, 65)
+    assert demap.launches == before
+
+
+def test_blind_search_and_pusch_decode_through_the_demap_kernel(cuda_device):
+    """The blind search (one demap launch, the softbuffer form) and the PUSCH
+    decode with UCI (one per K-group, and the LLR form for the CQI and ACK
+    symbols) on the card give the CPU's decisions."""
+    from srsue_tpu_torch import rx
+    from srsue_tpu_torch.kernels import demap
+    from srsue_tpu_torch.phy.cell import UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCodec
+
+    clean = rx.build_clean(2, cell=Cell(n_prb=25, cell_id=42), mcs=9, cfi=2)
+    noisy = rx.add_noise(clean.rng, clean.td, clean.p_sig, 12.0)
+    found = {}
+    for dev in ("cpu", cuda_device):
+        fn = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
+                        clean.dci_bits, clean.payloads, True, "zf", device=dev)
+        before = demap.launches
+        found[str(dev)] = {k: float(v) for k, v in fn(torch.as_tensor(noisy, device=dev)).items()}
+        # PCFICH (LLR form), the blind search and the PDSCH (softbuffer form)
+        assert demap.launches == before + (3 if str(dev) != "cpu" else 0)
+    assert found["cpu"] == found[str(cuda_device)]
+    assert found["cpu"]["n_dci"] == found["cpu"]["n_ok"] == 2
+
+    cell = Cell(n_prb=6, cell_id=17)
+    g = ra.dl_grant(6, 9)
+    grant = UlGrant(g.n_prb, g.prb_start, g.mcs, g.mod_order, g.tbs)
+    rng = np.random.default_rng(9)
+    payload = rng.integers(0, 2, grant.tbs).astype(np.uint8)
+    cqi = np.array([0, 1, 1, 0], np.uint8)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        codec = PuschCodec(cell, grant, 0x1234, 2, n_cqi_bits=4, with_ack=True, device=dev)
+        wave = codec.encode_sf_uci(payload, cqi_bits=cqi, ack=False)
+        iq = (wave + 0.05 * np.random.default_rng(1).standard_normal(wave.size)).astype(
+            np.complex64)[None]
+        before = demap.launches
+        pay, ok, iters = codec.decode_sf(iq)
+        assert demap.launches == before + (len(codec.groups) + 2 if str(dev) != "cpu" else 0)
+        out[str(dev)] = (pay.cpu().numpy(), ok.cpu().numpy(), iters.cpu().numpy(),
+                         codec.decode_uci())
+    for a, b in zip(out["cpu"][:3], out[str(cuda_device)][:3]):
+        np.testing.assert_array_equal(a, b)
+    assert out["cpu"][1].all() and (out["cpu"][0] == payload).all()
+    for uci in (out["cpu"][3], out[str(cuda_device)][3]):
+        np.testing.assert_array_equal(uci[0], cqi)
+        assert uci[1] is False
