@@ -144,18 +144,24 @@ Phases, each of which fails the run:
      on the CPU, every r2max launch at a shape phase 2 held; prints the
      launch's seconds and each rank's r2max launches;
  19. the demap kernel (csrc/demap.cu: max-log soft demap, descramble and
-     rate dematch in one pass) against its plain version at atol 0, bit for
-     bit, on every caller's shapes: the flagship PDSCH (64QAM, B=256, 13 x
-     K=5824) in both forms and with scalar noise, a 16QAM grant, the TM2
-     flagship's combined symbols, the PDCCH blind search at 100 PRB (L=1-8,
-     up to 5 repeats), PCFICH's 32 and PBCH's 480 LLRs, the 2 PRB MCS 0
-     PDSCH and 1 PRB MCS 0 PUSCH grants (4 and 3 repeats), phase 14's
-     full-width PUSCH at B=256, the 50 PRB MCS 20 grant with ACK + 4 CQI
-     bits (erasures), and a seeded table for any other (form, qm, R) that
-     phases 3-18 launched at; each compared call one launch, and every
-     launch of phases 3-18 at a (form, qm, R) held (kernels.demap.shapes);
-     the flagship and uplink calls timed (CUDA events, device time) against
-     the plain composition beside their bounds, phase 3's demap + dematch
+     rate dematch in one pass; the softbuffer form tiled by code block, its
+     bits staged in shared memory) against its plain version at atol 0, bit
+     for bit, on every caller's shapes: the flagship PDSCH (64QAM, B=256, 13
+     x K=5824) in both forms, with scalar noise and with the whole row as
+     one segment (a range over the shared budget, staged in chunks), a
+     16QAM grant, the TM2 flagship's combined symbols, the PDCCH blind
+     search at 100 PRB (L=1-8, up to 5 repeats) at B=256 and B=1, PCFICH's
+     32 and PBCH's 480 LLRs, the 2 PRB MCS 0 PDSCH and 1 PRB MCS 0 PUSCH
+     grants (4 and 3 repeats), the UE over the air's 100 PRB MCS 6 grant at
+     B=1 (its blocks split over a cluster of CTAs), phase 14's full-width
+     PUSCH at B=256, the 50 PRB MCS 20 grant with ACK + 4 CQI bits
+     (erasures), and a seeded table for any other (form, qm, R) that phases
+     3-18 launched at; each compared call one launch, every launch of
+     phases 3-18 at a (form, qm, R) held (kernels.demap.shapes), and none
+     of the gather variant; the tiled kernel and the gather variant timed
+     in turns (CUDA events, device time) at the flagship, the uplink B=256
+     and the B=1 grant, beside the plain composition and the bounds, the
+     LLR form at the flagship beside its own; phase 3's demap + dematch
      stage and the forced 8 chain with the kernel and with the torch
      composition in one call; phase 3's chain, phase 9's blind run, phase
      14's B=256 decode and the UCI again with the same decisions.
@@ -321,21 +327,27 @@ def zero_counts(bcjr) -> None:
     for name in bcjr.launches:
         bcjr.launches[name] = 0
         bcjr.shapes[name].clear()
-    demap.launches = 0
+    demap.launches = demap.llr_launches = demap.gather_launches = 0
 
 
-# demap launches of each path since its counters were zeroed (phase 19
-# reads them; demap.shapes keeps every launch's shape from phase 3 on)
+# launches of the demap kernel's softbuffer form and of its LLR form on each
+# path since its counters were zeroed (phase 19 reads them; demap.shapes
+# keeps every launch's shape from phase 3 on)
 DEMAP_BY_PATH: dict = {}
+DEMAP_LLR_BY_PATH: dict = {}
 
 
 def note_demap(path: str) -> int:
     """Record the demap kernel's launches on `path` since the counters were
-    zeroed; fails where the path made none."""
+    zeroed, in each form; fails where the path launched no softbuffer form,
+    or the gather variant. Returns the softbuffer form's count."""
     from srsue_tpu_torch.kernels import demap
 
-    n = DEMAP_BY_PATH[path] = demap.launches
+    DEMAP_LLR_BY_PATH[path] = demap.llr_launches
+    n = DEMAP_BY_PATH[path] = demap.launches - demap.llr_launches
     check(n > 0, f"{path}: the demap kernel did not launch")
+    check(demap.gather_launches == 0, f"{path}: the gather variant launched "
+          f"{demap.gather_launches} times")
     return n
 
 
@@ -2573,6 +2585,19 @@ def demap_bound(n, m, nv_elems, qm, e, d=0, r=0, mapped=False) -> dict:
     return bound(nbytes, n * e * per_bit)
 
 
+def demap_chunks(torch, inv, lo, n_e, qm, p) -> int:
+    """The most chunks any tile of plan p stages: from the true range of the
+    tile's inv entries up to the pad."""
+    live = torch.cumprod(((inv >= 0) & (inv < n_e)).to(torch.int32), 1).bool()
+    most = 1
+    for t0 in range(0, inv.shape[0], p.tile):
+        ent = inv[t0:t0 + p.tile][live[t0:t0 + p.tile]]
+        if ent.numel():
+            nsym = (lo + int(ent.max())) // qm - (lo + int(ent.min())) // qm + 1
+            most = max(most, -(-nsym // (p.csize * p.bs)))
+    return most
+
+
 def tm2_symbols(torch, rx, clean, iq, dev):
     """The Alamouti-combined PDSCH symbols and noise of phase 13's subframes,
     as rx.make_tm2_rx computes them."""
@@ -2591,12 +2616,17 @@ def tm2_symbols(torch, rx, clean, iq, dev):
 def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
     """Phase 19: (a) the demap kernel against its plain version on the card at
     atol 0 (bit for bit), each compared call one launch, on every caller's
-    shapes; (b) every (form, qm, R) that phases 3-18 launched at was held in
-    (a); (c) the flagship and the uplink B=256 calls timed by CUDA events and
-    by device time against the plain composition, beside their bounds, and
-    the stage and chains around them, kernel and plain in one call; (d) phase
-    3's chain, phase 9's blind run and phase 14's B=256 decode again with the
-    same decisions, and the UCI decisions. Returns the kernels-line entry."""
+    shapes, a chunked range and a B=1 cluster among them; (b) every (form,
+    qm, R) that phases 3-18 launched at was held in (a), and no path launched
+    the gather variant; (c) the tiled kernel and the gather variant at the
+    flagship, the uplink B=256 and the B=1 grant, in turns, by CUDA events
+    and by device time against the plain composition, beside their bounds,
+    the LLR form beside its own, and the stage and chains around them,
+    kernel and plain in one call; (d) phase 3's chain, phase 9's blind run
+    and phase 14's B=256 decode again with the same decisions, and the UCI
+    decisions. Returns the kernels-line entries of the softbuffer form and
+    of the LLR form."""
+    from srsue_tpu_torch import bench_kernel_variants
     from srsue_tpu_torch.kernels import demap
     from srsue_tpu_torch.phy import chest, control, dci, equalize, modulation, ofdm, ra, ratematch
     from srsue_tpu_torch.phy.cell import Cell, UlGrant
@@ -2609,26 +2639,35 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
     prior = {sh[:3] for sh in demap.shapes}  # (form, qm, R) of phases 3-18
     rows, held, launched = [], set(), 0
 
-    def case(label, sym, nv, qm, scr=None, inv=None, sym_map=None, lo=0, hi=None):
-        """Kernel and plain version on the same inputs, bit for bit."""
+    def case(label, sym, nv, qm, scr=None, inv=None, sym_map=None, lo=0, hi=None, ranges=None):
+        """Kernel and plain version on the same inputs, bit for bit; the
+        softbuffer form's plan and the chunks its tiles' true ranges need."""
         nonlocal launched
-        before = demap.launches
+        before, before_llr = demap.launches, demap.llr_launches
         if inv is None:
             got = modulation.demodulate_soft(sym, qm, nv)
             ref = modulation.demodulate_soft_plain(sym, qm, nv)
-            form, r = "llr", 0
+            form, r, how = "llr", 0, ""
         else:
-            got = ratematch.demap_dematch(sym, nv, qm, scr, inv, sym_map, lo, hi)
+            got = ratematch.demap_dematch(sym, nv, qm, scr, inv, sym_map, lo, hi, ranges)
+            hi = qm * (sym.shape[-1] if sym_map is None else sym_map.numel()) if hi is None else hi
             ref = ratematch.demap_dematch_plain(sym, nv, qm, scr, inv, sym_map, lo, hi)
             form, r = "softbuffer", inv.shape[1]
+            d = inv.shape[0]
+            p = demap.plan(got.numel() // got.shape[-1], d,
+                           d if ranges is None else d // ranges.shape[0], hi - lo, qm)
+            chunks = demap_chunks(torch, inv, lo, hi - lo, qm, p)
+            how = (f"; tiles {p.tiles} x {p.tile}, cluster {p.csize}, {p.rows} row(s) of "
+                   f"{p.bs} symbols and {p.smem} B a CTA, {p.threads} threads, "
+                   f"{chunks} chunk(s)")
         torch.cuda.synchronize()
-        check(demap.launches == before + 1, f"{tag}: (a) {label}: "
-              f"{demap.launches - before} demap launches, expected 1")
+        check(demap.launches == before + 1 and demap.llr_launches == before_llr + (r == 0),
+              f"{tag}: (a) {label}: {demap.launches - before} demap launches, expected 1")
         launched += 1
         n_diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-        err = float((got - ref).abs().max()) if got.numel() else 0.0
         check(n_diff == 0, f"{tag}: (a) {label}: {n_diff} values differ from the plain version "
-              f"(max |diff| {err:.3g})")
+              f"(max |diff| {float((got - ref).abs().nan_to_num(0.0).max()):.3g})")
+        err = 0.0  # bit for bit, NaNs included
         n = got.numel() // got.shape[-1]
         noise = ("scalar" if not isinstance(nv, torch.Tensor) else
                  "per row" if nv.shape[-1] == 1 or nv.stride(-1) == 0 else "per RE")
@@ -2636,8 +2675,9 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
                      "noise": noise, "max_abs_err": err})
         held.add((form, qm, r))
         print(f"{tag}: (a) {label}: {form} form, qm {qm}, R {r}, N {n}, width "
-              f"{got.shape[-1]}, {noise} noise: kernel = plain bit for bit (atol 0)", flush=True)
-        return got
+              f"{got.shape[-1]}, {noise} noise: kernel = plain bit for bit (atol 0){how}",
+              flush=True)
+        return (p, chunks) if r else None
 
     def noisy_syms(n, m, qm, sigma=0.2):
         bits = rng.integers(0, 2, (n, m * qm)).astype(np.uint8)
@@ -2650,21 +2690,28 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
                                device=dev)
 
     def pdsch_case(label, codec, x, nv):
-        for (k, first, count, lo, hi, _), inv32 in zip(codec.groups, codec._inv32):
-            case(f"{label}, K={k} x {count}", x, nv, codec.qm, codec._scr, inv32, lo=lo, hi=hi)
+        return [case(f"{label}, K={k} x {count}", x, nv, codec.qm, codec._scr, inv32, lo=lo,
+                     hi=hi, ranges=ranges)
+                for (k, first, count, lo, hi, _), inv32, ranges
+                in zip(codec.groups, codec._inv32, codec._ranges)]
 
     # (a) the callers' shapes
     iq3, want3, iters3 = kept["entry"]
     cell, codec = entry.flagship(dev)
     front, dd, _, _ = entry.stages(cell, codec, entry.SUBFRAME)
     x3, nv3 = front(iq3)
-    (k0, _, count0, lo0, hi0, inv0), = codec.groups
+    (_, _, _, lo0, hi0, _), = codec.groups
     inv0_32 = codec._inv32[0]
+    ranges0 = codec._ranges[0]
     case(f"flagship PDSCH 64QAM B={BATCH} (entry's symbols)", x3, nv3, 6, codec._scr, inv0_32,
-         lo=lo0, hi=hi0)
+         lo=lo0, hi=hi0, ranges=ranges0)
     case(f"flagship PDSCH 64QAM B={BATCH}, LLR form", x3, nv3, 6)
     case(f"flagship PDSCH 64QAM B={BATCH}, scalar noise", x3, 0.01, 6, codec._scr, inv0_32, lo=lo0,
-         hi=hi0)
+         hi=hi0, ranges=ranges0)
+    p_over, chunks_over = case(
+        f"flagship PDSCH 64QAM B={BATCH}, the whole row as one segment (a range over the "
+        f"shared budget)", x3, nv3, 6, codec._scr, inv0_32, lo=lo0, hi=hi0)
+    check(chunks_over > 1, f"{tag}: (a) the over-budget range was staged in {chunks_over} chunk")
     g16 = PdschCodec(Cell(n_prb=100, cell_id=rx.CELL_ID), ra.dl_grant(100, 16), rx.RNTI,
                      entry.SUBFRAME, device=dev)
     pdsch_case(f"PDSCH 100 PRB MCS 16 (16QAM) B={BATCH}, per-row noise", g16,
@@ -2680,10 +2727,12 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
     n_1a = dci.size_0_1a(clean.cell.n_prb)
     targs = (clean.cell, clean.subframe, clean.cfi, clean.rnti, n_1a, True, dev)
     _, _, scr_b, _, _, _ = control._blind_tables(*targs)
-    res32, buf32 = control._blind_tables32(*targs)
+    res32, buf32, ranges_b = control._blind_tables32(*targs)
     y9, nv9 = control._flat_grid(g_eq, nv_grid)
     case("PDCCH blind search 100 PRB, DCI 1A, L=1-8 (phase 9's grid)", y9, nv9, 2, scr_b,
-         buf32, sym_map=res32)
+         buf32, sym_map=res32, ranges=ranges_b)
+    case("PDCCH blind search 100 PRB, DCI 1A, L=1-8, B=1 (a UE's search)", y9[:1], nv9[:1], 2,
+         scr_b, buf32, sym_map=res32, ranges=ranges_b)
     idx, _, _ = control._pcfich_tensors(clean.cell, clean.subframe, dev)
     y_p, nv_p = control._gather_re(g_eq, nv_grid, idx)
     case("PCFICH's 32 LLRs (phase 9's grid)", y_p, nv_p, 2)
@@ -2693,18 +2742,23 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
     pd2 = PdschCodec(small, g_small, 0x42, 1, device=dev)
     pdsch_case("PDSCH 6 PRB cell, 2 PRB MCS 0", pd2, noisy_syms(BATCH, pd2.n_re, 2, 0.6),
                per_re(BATCH, pd2.n_re))
+    ota = bench_kernel_variants.demap_case("OTA grant B=1", dev)
+    p_ota, _ = case("PDSCH 100 PRB MCS 6, B=1 (the UE over the air's most frequent grant), "
+                    "seeded symbols", **ota)
+    check(p_ota.csize > 1, f"{tag}: (a) the B=1 grant's segments were not split over a cluster")
     g1 = ra.dl_grant(6, 0, n_prb_alloc=1)
     pu1 = PuschCodec(small, UlGrant(n_prb=1, prb_start=g1.prb_start, mcs=g1.mcs,
                                     mod_order=g1.mod_order, tbs=g1.tbs), 0x42, 2, device=dev)
     case("PUSCH 1 PRB MCS 0", noisy_syms(BATCH, pu1.n_re, 2, 0.6), per_re(BATCH, pu1.n_re), 2,
-         pu1._scr_erase, pu1._inv32[0], sym_map=pu1._data_pos, lo=0, hi=pu1.G)
+         pu1._scr_erase, pu1._inv32[0], sym_map=pu1._data_pos, lo=0, hi=pu1.G,
+         ranges=pu1._ranges[0])
     iq14, want14, iters14 = kept["pusch"]
     cell_ul, grants = ul_grants(rx)
     pu = PuschCodec(cell_ul, grants["full"], rx.RNTI, rx.UL_SUBFRAME, device=dev)
     x14, nv14 = pu.equalize_sf(iq14)
     (_, _, _, lo14, hi14, _), = pu.groups
     case(f"PUSCH 100 PRB MCS 28 B={BATCH} (phase 14's symbols)", x14, nv14, 6, pu._scr_erase,
-         pu._inv32[0], sym_map=pu._data_pos, lo=lo14, hi=hi14)
+         pu._inv32[0], sym_map=pu._data_pos, lo=lo14, hi=hi14, ranges=pu._ranges[0])
     ctl = UlCtrl(UlCtrlConfig(cqi_config_index=2, n_prb=cell_ul.n_prb))
     for _ in range(30):
         ctl.update_snr(SNR_DB)
@@ -2718,10 +2772,11 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
         p_sig = float(np.mean(np.abs(wave) ** 2)) * cell_ul.nfft / pu_u.m_sc
         iq_u = torch.as_tensor(rx.add_noise(rng, wave[None], p_sig, SNR_DB), device=dev)
         xu, nvu = pu_u.equalize_sf(iq_u)
-        for (k, _, count, lo, hi, _), inv32 in zip(pu_u.groups, pu_u._inv32):
+        for (k, _, count, lo, hi, _), inv32, ranges in zip(pu_u.groups, pu_u._inv32,
+                                                            pu_u._ranges):
             case(f"PUSCH 50 PRB MCS 20, ACK={ack} + {len(cqi)} CQI bits (erasures), B=1, "
                  f"K={k} x {count}", xu, nvu, pu_u.qm, pu_u._scr_erase, inv32,
-                 sym_map=pu_u._data_pos, lo=lo, hi=hi)
+                 sym_map=pu_u._data_pos, lo=lo, hi=hi, ranges=ranges)
         case(f"PUSCH 50 PRB MCS 20 CQI symbols' LLRs, ACK={ack}", xu[:, pu_u._cqi_pos],
              nvu[:, pu_u._cqi_pos], pu_u.qm)
         pay, ok, _ = pu_u.decode_sf(iq_u)
@@ -2735,6 +2790,13 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
         u_cpu = pc.decode_uci()
         check(u_cpu[1] is uci[ack][1] and bool((u_cpu[0] == uci[ack][0]).all()),
               f"{tag}: (d) UCI ACK={ack}: card {uci[ack]}, CPU {u_cpu}")
+
+    # (a) special values: ties between levels, +-0, huge values, +-inf and NaN
+    # among the symbols, tiny and NaN noise, 3 repeats with erasures
+    x_sp, nv_sp, scr_sp, inv_sp = bench_kernel_variants.demap_special_case(6, 64, dev, DEMAP_SEED)
+    case("seeded special values (ties, +-0, +-inf, NaN), 64QAM, 3 repeats", x_sp, nv_sp, 6,
+         scr_sp, inv_sp)
+    case("seeded special values, 64QAM, LLR form", x_sp, nv_sp, 6)
 
     # (a) the rest of what phases 3-18 launched at: a synthetic repeat table of
     # each (form, qm, R) no caller above held
@@ -2756,38 +2818,51 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
     check(prior <= held, f"{tag}: (b) phases 3-18 launched at (form, qm, R) "
           f"{sorted(prior - held)}, not held in (a)")
     print(f"{tag}: (b) every launch of phases 3-18 ran at a (form, qm, R) held in (a): "
-          f"{sorted(prior)}; {launched} compared calls, each one launch", flush=True)
+          f"{sorted(prior)}; {launched} compared calls, each one launch; no path launched the "
+          f"gather variant ({len(DEMAP_BY_PATH)} paths read)", flush=True)
 
-    # (c) times: the kernel alone and with its wrapper, the plain composition
-    def demap_fl():
-        return ratematch.demap_dematch(x3, nv3, 6, codec._scr, inv0_32, lo=lo0, hi=hi0)
-
-    def demap_fl_plain():
-        return ratematch.demap_dematch_plain(x3, nv3, 6, codec._scr, inv0, lo=lo0, hi=hi0)
-
-    def demap_ul():
-        return ratematch.demap_dematch(x14, nv14, 6, pu._scr_erase, pu._inv32[0],
-                                       sym_map=pu._data_pos, lo=lo14, hi=hi14)
-
-    def demap_ul_plain():
-        return ratematch.demap_dematch_plain(x14, nv14, 6, pu._scr_erase, pu.groups[0][5],
-                                             sym_map=pu._data_pos, lo=lo14, hi=hi14)
-
+    # (c) times of the tiled kernel and the gather variant in turns (gather,
+    # tiled, tiled, gather), by CUDA events (wrapper included) and device
+    # time, beside the plain composition and the bound
     timed = {}
-    for label, fn, plain, b in (
-            ("flagship PDSCH", demap_fl, demap_fl_plain,
-             demap_bound(BATCH, codec.n_re, nv3.numel(), 6, hi0 - lo0, inv0.shape[0], 1)),
-            ("uplink PUSCH", demap_ul, demap_ul_plain,
-             demap_bound(BATCH, pu.n_re, nv14.numel(), 6, hi14 - lo14, pu.groups[0][5].shape[0],
-                         1, mapped=True))):
-        ms = [cuda_ms(torch, fn, reps=20), cuda_ms(torch, fn, reps=20)]
-        dms = device_ms(fn, 20, "demap")
-        plain_ms = cuda_ms(torch, plain, reps=3)
-        timed[label] = {"ms": ms, **dms, "plain_ms": plain_ms, **b}
-        print(f"{tag}: (c) {label} call B={BATCH}: kernel {ms[0]:.4f} / {ms[1]:.4f} ms (CUDA "
-              f"events, wrapper included), device {dms['device_ms']:.4f} ms "
-              f"({dms['device_ms_by']}); plain composition {plain_ms:.4f} ms; bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    for label, sym, nv in (("flagship PDSCH B=256", x3, nv3), ("uplink PUSCH B=256", x14, nv14),
+                           ("OTA grant B=1", None, None)):
+        c = bench_kernel_variants.demap_case(label, dev, sym, nv)
+        fns = bench_kernel_variants.demap_variants(c)
+        n, m = c["sym"].shape
+        d, r = c["inv"].shape
+        b = demap_bound(n, m, c["nv"].numel(), c["qm"], c["hi"] - c["lo"], d, r,
+                        mapped=c["sym_map"] is not None)
+        got = {}
+        for kernel in ("demap_gather", "demap", "demap", "demap_gather"):
+            got.setdefault(kernel, []).append(
+                {"ms": cuda_ms(torch, fns[kernel], reps=20), **device_ms(fns[kernel], 20, kernel)})
+        plain = {k: v for k, v in c.items() if k != "ranges"}
+        plain_ms = cuda_ms(torch, lambda: ratematch.demap_dematch_plain(**plain), reps=3)
+        timed[label] = {
+            "ms": [g["ms"] for g in got["demap"]],
+            "device_ms": [g["device_ms"] for g in got["demap"]],
+            "device_ms_by": got["demap"][0]["device_ms_by"],
+            "gather_ms": [g["ms"] for g in got["demap_gather"]],
+            "gather_device_ms": [g["device_ms"] for g in got["demap_gather"]],
+            "plain_ms": plain_ms, **b}
+        t = timed[label]
+        print(f"{tag}: (c) {label}: tiled kernel {t['ms'][0]:.4f} / {t['ms'][1]:.4f} ms (CUDA "
+              f"events, wrapper included), device {t['device_ms'][0]:.4f} / "
+              f"{t['device_ms'][1]:.4f} ms ({t['device_ms_by']}); gather variant "
+              f"{t['gather_ms'][0]:.4f} / {t['gather_ms'][1]:.4f} ms, device "
+              f"{t['gather_device_ms'][0]:.4f} / {t['gather_device_ms'][1]:.4f} ms; plain "
+              f"composition {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+              flush=True)
+    llr_fn = (lambda: modulation.demodulate_soft(x3, 6, nv3))
+    llr_t = {"ms": cuda_ms(torch, llr_fn, reps=20), **device_ms(llr_fn, 20, "demap_llr"),
+             "plain_ms": cuda_ms(torch, lambda: modulation.demodulate_soft_plain(x3, 6, nv3),
+                                 reps=3),
+             **demap_bound(BATCH, codec.n_re, nv3.numel(), 6, 6 * codec.n_re)}
+    print(f"{tag}: (c) LLR form, flagship B={BATCH} (64QAM, {codec.n_re} symbols a row): "
+          f"{llr_t['ms']:.4f} ms, device {llr_t['device_ms']:.4f} ms ({llr_t['device_ms_by']}); "
+          f"plain {llr_t['plain_ms']:.4f} ms; bound {llr_t['bound_ms']:.4f} ms "
+          f"({llr_t['bound_by']})", flush=True)
 
     def dd_plain(x, nv):
         return codec.dematch(modulation.demodulate_soft_plain(x, 6, nv) * codec._scr)
@@ -2844,17 +2919,24 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
           f"iterations = phase 14's, {t_ul[0]:.3f} / {t_ul[1]:.3f} ms/batch; UCI ACK and NACK "
           f"with CQI {cqi.tolist()} found, card = CPU", flush=True)
 
-    flag_t = timed["flagship PDSCH"]
-    return {"name": "demap", "route": "cuda", "source": "srsue_tpu_torch/csrc/demap.cu",
-            "replaces": " and ".join(DEMAP_REPLACES),
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": flag_t["ms"][0], "device_ms": flag_t["device_ms"],
-            "device_ms_by": flag_t["device_ms_by"], "plain_ms": flag_t["plain_ms"],
-            "bound_ms": flag_t["bound_ms"], "bound_by": flag_t["bound_by"],
-            "uplink": {k: timed["uplink PUSCH"][k] for k in
-                       ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-            "stage_ms": stage, "forced8_ms": chain, "uplink_decode_ms": t_ul,
-            "cases": len(rows)}
+    flag_t = timed["flagship PDSCH B=256"]
+    keys = ("ms", "device_ms", "gather_ms", "gather_device_ms", "plain_ms", "bound_ms", "bound_by")
+    softbuffer = {
+        "name": "demap", "route": "cuda", "source": "srsue_tpu_torch/csrc/demap.cu",
+        "replaces": " and ".join(DEMAP_REPLACES),
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["form"] == "softbuffer"),
+        "ms": flag_t["ms"][0], "device_ms": flag_t["device_ms"][0],
+        "device_ms_by": flag_t["device_ms_by"], "plain_ms": flag_t["plain_ms"],
+        "bound_ms": flag_t["bound_ms"], "bound_by": flag_t["bound_by"],
+        **{f"{label}": {k: t[k] for k in keys} for label, t in timed.items()},
+        "over_budget_chunks": chunks_over, "stage_ms": stage, "forced8_ms": chain,
+        "uplink_decode_ms": t_ul, "cases": len(rows)}
+    llr = {"name": "demap_llr", "route": "cuda", "source": "srsue_tpu_torch/csrc/demap.cu",
+           "replaces": DEMAP_REPLACES[0],
+           "max_abs_err": max(r["max_abs_err"] for r in rows if r["form"] == "llr"),
+           **{k: llr_t[k] for k in ("ms", "device_ms", "device_ms_by", "plain_ms", "bound_ms",
+                                    "bound_by")}}
+    return softbuffer, llr
 
 
 def main_world(torch, np, entry, bcjr, dev, n: int, smi) -> int:
@@ -2896,7 +2978,7 @@ def main() -> int:
     import numpy as np
 
     from srsue_tpu_torch import bench_kernel_variants, entry, rx
-    from srsue_tpu_torch.kernels import bcjr, build, viterbi
+    from srsue_tpu_torch.kernels import bcjr, build, demap, viterbi
     from srsue_tpu_torch.mac.dl_harq import DlHarq
     from srsue_tpu_torch.phy import chest, convcode, dci, enb_tx, ofdm, turbo
     from srsue_tpu_torch.phy.pdsch import PdschCodec
@@ -2922,7 +3004,11 @@ def main() -> int:
     warps = {name: build.warps_per_sm(name, 64) for name in build.HALF_KERNELS}
     warps["fused"] = build.warps_per_sm("fused", BATCH * 13, 5824, 64)
     warps["viterbi"] = build.warps_per_sm("viterbi", 44)
-    warps["demap"] = build.warps_per_sm("demap", 0, 6)  # the softbuffer form at 64QAM
+    # the demap kernel at the flagship: the softbuffer form at its plan, the LLR form
+    p_fl = demap.plan(BATCH, 13 * 3 * (5824 + 4), 3 * (5824 + 4), 90000, 6)
+    warps["demap"] = build.warps_per_sm("demap", 0, 6, p_fl.threads, p_fl.smem)
+    warps["demap_llr"] = build.warps_per_sm("demap", 1, 6, 0, 0)
+    warps["demap_gather"] = build.warps_per_sm("demap", 2, 6, 0, 0)
     usage = ptxas_usage(lib.log)
     for name, inst in (("v4", "F32"), ("v5", "BF2")):
         regs = [u for k, u in usage.items() if "bcjr_half_r4_kernel" in k and inst in k]
@@ -2989,7 +3075,8 @@ def main() -> int:
     f7 = phase_fault7(torch, np, rx, bcjr, viterbi, dev, clean, noisy, blind)
     mh_launches = phase_multihost(torch, np, dev, held, 2, 1, "gloo", "two nodes on one card:")
     demap_by_path = dict(DEMAP_BY_PATH)  # phases 3-18
-    demap_row = phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, {
+    llr_by_path = {k: v for k, v in DEMAP_LLR_BY_PATH.items() if v}
+    demap_row, llr_row = phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, {
         "entry": (iq, want, iters), "tm2": tm2_kept, "blind": (clean, noisy, blind),
         "pusch": ul_kept})
     del clean, noisy, iq, want, tm2_kept, ul_kept
@@ -3036,6 +3123,8 @@ def main() -> int:
     kernels.append({**demap_row, "launches": demap_by_path["entry early exit"],
                     "warps_per_sm": warps["demap"],
                     "launches_by_path": demap_by_path})
+    kernels.append({**llr_row, "launches": llr_by_path["blind chain zf"],
+                    "warps_per_sm": warps["demap_llr"], "launches_by_path": llr_by_path})
     for k in kernels:  # no single PyTorch call computes a max-log BCJR, a Viterbi or a demap
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}), flush=True)

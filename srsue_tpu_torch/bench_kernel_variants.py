@@ -8,10 +8,16 @@ Times one half-iteration of every kernel instance at three window batches:
   * the flagship: 3,328 blocks of K=5824 in 91 windows of 64;
   * the TPU's block-minor window for K=5824: 56 windows of 104
     (``turbo_pallas._bm_window``);
-and the circular Viterbi (``convcode.decode``) at the blind search's shape,
-4,608 hypotheses of n=44. The [n, lw] instances (``kernels.bcjr.KERNELS``)
-take random LLRs and boundaries; the fused half takes the [B, K] contract of
-the same windows with the QPP deinterleaver of K. Each row has two times:
+the circular Viterbi (``convcode.decode``) at the blind search's shape,
+4,608 hypotheses of n=44, and the demap kernel's softbuffer form in both
+designs (the tiled one every path launches, and the gather variant) at the
+flagship PDSCH and the full-width PUSCH (B=256) and the UE's most frequent
+grant (100 PRB MCS 6, B=1), on seeded symbols (``demap_case``;
+``demap_special_case`` makes the special values the card tests and
+chip_smoke hold the kernel to). The [n, lw] instances
+(``kernels.bcjr.KERNELS``) take random LLRs and boundaries; the fused half
+takes the [B, K] contract of the same windows with the QPP deinterleaver
+of K. Each row has two times:
 ``ms``, the mean over `reps` back-to-back calls between CUDA events after a
 warm-up (the wrapper's host work included where it is longer than the
 kernel), and ``device_ms``, the kernel's own mean time by ``torch.profiler``
@@ -32,8 +38,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .kernels import bcjr, build
-from .phy import convcode, turbo
+from .kernels import bcjr, build, demap
+from .phy import convcode, modulation, ra, ratematch, turbo
 from .utils.device import require_cuda
 
 SHAPES = (  # (label, K, lw, blocks)
@@ -46,7 +52,9 @@ VITERBI_SHAPE = ("blind search B=4608 n=44", 4608, 44)
 KERNEL_NAMES = {"r2max": "bcjr_half_kernel", "v2v3": "bcjr_half_kernel",
                 "v4": "bcjr_half_r4_kernel", "v5": "bcjr_half_r4_kernel",
                 "fused": "bcjr_half_fused_kernel", "viterbi": "viterbi_kernel",
-                "demap": "demap_dematch_kernel"}
+                "demap": "demap_dematch_tile_kernel",
+                "demap_gather": "demap_dematch_gather_kernel", "demap_llr": "demap_llr_kernel"}
+DEMAP_SHAPES = ("flagship PDSCH B=256", "uplink PUSCH B=256", "OTA grant B=1")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -136,6 +144,77 @@ def viterbi_llrs(batch: int, n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(y, dtype=np.float32), device=device)
 
 
+def demap_case(label: str, device: torch.device, sym=None, nv=None) -> dict:
+    """The softbuffer form's arguments at one of DEMAP_SHAPES: the caller's
+    own tables (its first K-group) and, unless given, seeded noisy symbols
+    with per-RE noise; {sym, nv, qm, scr, inv, sym_map, lo, hi, ranges}, the
+    keywords of ``ratematch.demap_dematch``."""
+    from . import entry, rx
+    from .phy.cell import Cell
+    from .phy.pdsch import PdschCodec
+    from .phy.pusch import PuschCodec
+
+    rows = 1 if label.endswith("B=1") else 256
+    if label.startswith("flagship"):
+        codec = entry.flagship(device)[1]
+        scr, sym_map = codec._scr, None
+    elif label.startswith("uplink"):
+        codec = PuschCodec(Cell(n_prb=100, cell_id=rx.CELL_ID), rx.ul_grant(100, 28), rx.RNTI,
+                           rx.UL_SUBFRAME, device=device)
+        scr, sym_map = codec._scr_erase, codec._data_pos
+    else:
+        codec = PdschCodec(Cell(n_prb=100, cell_id=123), ra.dl_grant(100, 6), 0x46, 1,
+                           device=device)
+        scr, sym_map = codec._scr, None
+    k, _, _, lo, hi, _ = codec.groups[0]
+    if sym is None:
+        rng = np.random.default_rng(rows + k)
+        x = modulation.modulate_np(rng.integers(0, 2, (rows, codec.n_re * codec.qm)).astype(
+            np.uint8), codec.qm)
+        x = x + 0.1 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+        sym = torch.as_tensor(x.astype(np.complex64), device=device)
+        nv = torch.as_tensor((0.005 + 0.05 * rng.random(x.shape)).astype(np.float32),
+                             device=device)
+    return {"sym": sym, "nv": nv, "qm": codec.qm, "scr": scr, "inv": codec._inv32[0],
+            "sym_map": sym_map, "lo": lo, "hi": hi, "ranges": codec._ranges[0]}
+
+
+def demap_special_case(qm: int, rows: int, device, seed: int, s: int = 300):
+    """(sym [rows, s], nv, scr, inv int32) on `device`: noisy symbols with
+    ties between levels, zeros, huge values, infinities and NaNs, per-RE
+    noise with tiny values and a NaN, a seeded table of up to 3 repeats,
+    scrambling with erasures."""
+    rng = np.random.default_rng(seed)
+    x = modulation.modulate_np(rng.integers(0, 2, (rows, s * qm)).astype(np.uint8), qm)
+    x = x + 0.6 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+    flat = x.reshape(-1)
+    vals = [0.0, 1e20, -1e20, np.inf, -np.inf, np.nan, 2 / np.sqrt(42), 1 / np.sqrt(10), -0.0,
+            4 / np.sqrt(42)]
+    for i, j in enumerate(rng.permutation(flat.size)[:4 * len(vals)]):
+        flat[j] = complex(vals[i % len(vals)], vals[(i + 3) % len(vals)])
+    nv = (0.01 + rng.random((rows, s))).astype(np.float32)
+    nv[0, :7] = 1e-12
+    nv[1, 3] = np.nan
+    e, r = s * qm, 3
+    d = -(-e // r) + 5
+    idx = rng.permutation(np.tile(rng.permutation(d)[:-(-e // r)], r)[:e])
+    scr = (1.0 - 2.0 * rng.integers(0, 2, e)).astype(np.float32)
+    scr[rng.random(e) < 0.1] = 0.0
+    inv = ratematch.inverse_index(idx, d).astype(np.int32)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (x.astype(np.complex64), nv, scr, inv))
+
+
+def demap_variants(case: dict) -> dict:
+    """{"demap": the tiled kernel's call, "demap_gather": the gather
+    variant's} on one demap_case, each one launch."""
+    lv = modulation.levels(case["qm"], case["sym"].device)
+    args = (case["sym"], modulation.kernel_noise(case["nv"], case["sym"].device), case["qm"], lv,
+            case["scr"], case["inv"], case["sym_map"], case["lo"], case["hi"])
+    return {"demap": lambda: ratematch.demap_dematch(**case),
+            "demap_gather": lambda: demap.demap_dematch_gather_cuda(*args)}
+
+
 def run(device: torch.device, reps: int = 20) -> list[dict]:
     """One row {shape, kernel, windows, ms, device_ms, device_ms_by, warps}
     per shape and kernel instance, then the Viterbi's (windows:
@@ -169,6 +248,14 @@ def run(device: torch.device, reps: int = 20) -> list[dict]:
     label, batch, n = VITERBI_SHAPE
     llr = viterbi_llrs(batch, n, device)
     row(label, "viterbi", batch, lambda: convcode.decode(llr), build.warps_per_sm("viterbi", n))
+    for label in DEMAP_SHAPES:
+        case = demap_case(label, device)
+        n, d = case["sym"].shape[0], case["inv"].shape[0]
+        p = demap.plan(n, d, d // case["ranges"].shape[0], case["hi"] - case["lo"], case["qm"])
+        warps = {"demap": build.warps_per_sm("demap", 0, case["qm"], p.threads, p.smem),
+                 "demap_gather": build.warps_per_sm("demap", 2, case["qm"], 0, 0)}
+        for kernel, fn in demap_variants(case).items():
+            row(label, kernel, n, fn, warps[kernel])
     return rows
 
 

@@ -66,9 +66,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srsue_bcjr_half_fused.restype = ctypes.c_int
     lib.srsue_viterbi.argtypes = [p, p, ll, i, p]
     lib.srsue_viterbi.restype = ctypes.c_int
-    lib.srsue_demap_dematch.argtypes = [p, ll, p, ll, ll, f, p, i, p, p, ll, ll, p, i, ll, ll,
-                                        p, p]
+    lib.srsue_demap_dematch.argtypes = [p, ll, p, ll, ll, f, p, i, p, p, ll, ll, p, i, p, ll,
+                                        ll, ll, p, ll, i, i, i, i, i, p]
     lib.srsue_demap_dematch.restype = ctypes.c_int
+    lib.srsue_demap_dematch_gather.argtypes = [p, ll, p, ll, ll, f, p, i, p, p, ll, ll, p, i,
+                                               ll, ll, p, p]
+    lib.srsue_demap_dematch_gather.restype = ctypes.c_int
     lib.srsue_demap_llr.argtypes = [p, ll, p, ll, ll, f, p, i, ll, p, p]
     lib.srsue_demap_llr.restype = ctypes.c_int
     # resident warps per SM of each kernel, by the CUDA occupancy calculator
@@ -80,7 +83,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.srsue_bcjr_half_fused_warps.restype = ctypes.c_int
     lib.srsue_viterbi_warps.argtypes = [i, p]
     lib.srsue_viterbi_warps.restype = ctypes.c_int
-    lib.srsue_demap_warps.argtypes = [i, i, p]
+    lib.srsue_demap_warps.argtypes = [i, i, i, i, p]
     lib.srsue_demap_warps.restype = ctypes.c_int
 
 
@@ -139,7 +142,9 @@ def warps_per_sm(kernel: str, *args: int) -> int:
     the CUDA occupancy calculator for the launch configuration its wrapper
     would use: ``kernel`` is a half instance of HALF_KERNELS (args: lw),
     ``"fused"`` (args: B, K, lw), ``"viterbi"`` (args: n) or ``"demap"``
-    (args: llr_form 0 for the softbuffer form or 1 for the LLR form, qm)."""
+    (args: form, qm, threads, shared bytes: form 0 the softbuffer form at
+    its plan's threads and shared memory, 1 the LLR form, 2 the gather
+    variant, the last two at their fixed launch sizes)."""
     lib = load().lib
     fn = {"viterbi": lib.srsue_viterbi_warps, "demap": lib.srsue_demap_warps}.get(kernel)
     if fn is None:

@@ -392,9 +392,12 @@ def _blind_tables(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
 def _blind_tables32(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
                     ue_specific: bool, device: torch.device):
     """int32 copies of ``_blind_tables``' RE index and inverse index, as the
-    demap kernel reads them."""
-    _, res, _, buf, _, _ = _blind_tables(cell, subframe, cfi, rnti, dci_len, ue_specific, device)
-    return res.to(torch.int32), buf.to(torch.int32)
+    demap kernel reads them, and each candidate buffer's run of bits
+    (``ratematch.segment_ranges``)."""
+    n_cand, res, scr, buf, _, _ = _blind_tables(cell, subframe, cfi, rnti, dci_len, ue_specific,
+                                                device)
+    buf32 = buf.to(torch.int32)
+    return res.to(torch.int32), buf32, ratematch.segment_ranges(buf32, n_cand, scr.numel())
 
 
 def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
@@ -415,12 +418,12 @@ def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
     (``utils.device.require_cuda`` turns TF32 off)."""
     n_cand, _, scr, _, crc_m, mask = _blind_tables(cell, subframe, cfi, rnti, dci_len,
                                                    ue_specific, grid_eq.device)
-    res32, buf32 = _blind_tables32(cell, subframe, cfi, rnti, dci_len, ue_specific,
-                                   grid_eq.device)
+    res32, buf32, ranges = _blind_tables32(cell, subframe, cfi, rnti, dci_len, ue_specific,
+                                           grid_eq.device)
     n_coded = dci_len + 16
     lead = grid_eq.shape[:-2]
     y, nv = _flat_grid(grid_eq, nv_eff)
-    buffers = ratematch.demap_dematch(y, nv, 2, scr, buf32, sym_map=res32)
+    buffers = ratematch.demap_dematch(y, nv, 2, scr, buf32, sym_map=res32, ranges=ranges)
     flat = buffers.reshape(-1, 3, n_coded).transpose(1, 2).contiguous()
     hard = convcode.decode(flat).reshape(lead + (n_cand, n_coded))
     syn = torch.remainder(torch.round(hard.to(torch.float32) @ crc_m) + mask, 2.0)

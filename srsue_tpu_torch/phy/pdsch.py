@@ -117,8 +117,11 @@ class PdschCodec:
                                 torch.as_tensor(ratematch.inverse_index(idx, count * d_len),
                                                 device=dev)))
             b += count
-        # int32 copies of the groups' inverse tables, as the demap kernel reads them
+        # int32 copies of the groups' inverse tables, as the demap kernel reads
+        # them, and each code block's run of bits (ratematch.segment_ranges)
         self._inv32 = [g[5].to(torch.int32) for g in self.groups]
+        self._ranges = [ratematch.segment_ranges(inv, count, hi - lo)
+                        for (_, _, count, lo, hi, _), inv in zip(self.groups, self._inv32)]
         # TB bits (+ CRC24A) as positions in the concatenated hard blocks
         parts, off = [], 0
         for i, k in enumerate(p.block_ks):
@@ -181,11 +184,12 @@ class PdschCodec:
         """Equalized symbols [..., n_re] and their noise -> the softbuffers
         of ``dematch(demap_llrs(x_eq, nv_eff))``, bit for bit, by one
         ``ratematch.demap_dematch`` per K-group (on the card one launch of
-        the demap kernel each)."""
+        the demap kernel each, tiled by code block)."""
         return [self._filler(first, ratematch.demap_dematch(
-                    x_eq, nv_eff, self.qm, self._scr, inv32, lo=lo, hi=hi).reshape(
-                    x_eq.shape[:-1] + (count, 3 * (k + 4))))
-                for (k, first, count, lo, hi, _), inv32 in zip(self.groups, self._inv32)]
+                    x_eq, nv_eff, self.qm, self._scr, inv32, lo=lo, hi=hi,
+                    ranges=ranges).reshape(x_eq.shape[:-1] + (count, 3 * (k + 4))))
+                for (k, first, count, lo, hi, _), inv32, ranges
+                in zip(self.groups, self._inv32, self._ranges)]
 
     def decode_blocks(self, groups: list[torch.Tensor]):
         """Softbuffer groups -> (hard [..., sum K] uint8, blk_ok [..., C]

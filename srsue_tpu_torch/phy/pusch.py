@@ -151,10 +151,12 @@ class PuschCodec:
         self._blk_crc = {k: torch.as_tensor(m, dtype=torch.float32, device=dev)
                          for k, m in self.blk_crc.items()}
         # the scrambling signs times the ACK's erasures (+-1, +-0 where the
-        # ACK punctured a data bit), and int32 tables, as the demap kernel
-        # reads them
+        # ACK punctured a data bit), int32 tables, as the demap kernel reads
+        # them, and each code block's run of bits (ratematch.segment_ranges)
         self._scr_erase = torch.as_tensor(self.scr_pm1 * self._ack_erase, device=dev)
         self._inv32 = [g[5].to(torch.int32) for g in self.groups]
+        self._ranges = [ratematch.segment_ranges(inv, count, hi - lo)
+                        for (_, _, count, lo, hi, _), inv in zip(self.groups, self._inv32)]
         self._data_pos = torch.as_tensor(self.data_pos.astype(np.int32), device=dev)
         self._cqi_pos = torch.as_tensor(self.cqi_pos, device=dev)
         self._ack_pos = torch.as_tensor(self.ack_pos, device=dev)
@@ -260,9 +262,10 @@ class PuschCodec:
             self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
             self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
         bufs = []
-        for (k, first, count, lo, hi, _), inv32 in zip(self.groups, self._inv32):
+        for (k, first, count, lo, hi, _), inv32, ranges in zip(self.groups, self._inv32,
+                                                                self._ranges):
             buf = ratematch.demap_dematch(syms, nv, self.qm, self._scr_erase, inv32,
-                                          self._data_pos, lo, hi).reshape(
+                                          self._data_pos, lo, hi, ranges).reshape(
                 lead + (count, 3 * (k + 4)))
             if first == 0 and self.plan.f:
                 buf[..., 0, :self.plan.f] += FILLER_LLR

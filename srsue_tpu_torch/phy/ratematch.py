@@ -181,9 +181,24 @@ def demap_dematch_plain(sym: torch.Tensor, nv, qm: int, scr: torch.Tensor,
     return dematch(llr[..., lo:hi] * scr[lo:hi], inv.to(torch.int64))
 
 
+def segment_ranges(inv: torch.Tensor, n_seg: int, n_e: int) -> torch.Tensor:
+    """[n_seg, 2] int32 on inv's device: the least and the largest entry
+    below the pad n_e of each of n_seg equal segments of the rows of the
+    inverse index inv [D, R] (int32 max and -1 for a segment with none):
+    the run of bits each segment draws on, for ``demap_dematch``."""
+    d = inv.shape[0]
+    if n_seg < 1 or d % n_seg:
+        raise ValueError(f"segment_ranges: {d} positions in {n_seg} equal segments")
+    v = inv.reshape(n_seg, -1).to(torch.int64)
+    live = (v >= 0) & (v < n_e)
+    least = torch.where(live, v, torch.iinfo(torch.int32).max).amin(1)
+    most = torch.where(live, v, -1).amax(1)
+    return torch.stack([least, most], 1).to(torch.int32)
+
+
 def demap_dematch(sym: torch.Tensor, nv, qm: int, scr: torch.Tensor, inv: torch.Tensor,
                   sym_map: torch.Tensor | None = None, lo: int = 0,
-                  hi: int | None = None) -> torch.Tensor:
+                  hi: int | None = None, ranges: torch.Tensor | None = None) -> torch.Tensor:
     """Equalized symbols [..., S] complex64 and their noise (a number, or a
     tensor that broadcasts against them) -> softbuffer [..., D] float32.
 
@@ -193,17 +208,21 @@ def demap_dematch(sym: torch.Tensor, nv, qm: int, scr: torch.Tensor, inv: torch.
     an erased bit). The bits [lo, hi) (hi defaults to every bit of the map
     or of the symbols) fill position p as 0.0 + llr(lo + inv[p, 0]) + ...,
     one rounding per add in that order up to the pad, as ``dematch`` sums:
-    ``inv`` [D, R] is ``inverse_index`` of the slice's index map. CPU
-    tensors take ``demap_dematch_plain``; CUDA tensors launch the kernel
-    ``csrc/demap.cu`` once (``kernels/demap.py``: int32 ``inv`` and map,
-    contiguous inputs on the symbols' card, or it raises); any other device
-    raises."""
+    ``inv`` [D, R] is ``inverse_index`` of the slice's index map.
+    ``ranges`` is ``segment_ranges`` of inv in the segments its positions
+    fall into, each drawing on its own run of bits (a code block's 3(K+4)
+    positions, a PDCCH candidate's buffer); the callers build it beside inv,
+    and None takes the whole row as one segment. It tiles the kernel and
+    changes no value. CPU tensors take ``demap_dematch_plain``; CUDA tensors
+    launch the kernel ``csrc/demap.cu`` once (``kernels/demap.py``: int32
+    ``inv`` and map, contiguous inputs on the symbols' card, or it raises);
+    any other device raises."""
     if sym.device.type == "cuda":
         if hi is None:
             hi = qm * (sym.shape[-1] if sym_map is None else sym_map.numel())
         return demap_kernel.demap_dematch_cuda(
             sym.contiguous(), modulation.kernel_noise(nv, sym.device), qm,
-            modulation.levels(qm, sym.device), scr, inv, sym_map, lo, hi)
+            modulation.levels(qm, sym.device), scr, inv, sym_map, lo, hi, ranges)
     if sym.device.type == "cpu":
         return demap_dematch_plain(sym, nv, qm, scr, inv, sym_map, lo, hi)
     raise ValueError(f"demap_dematch: unsupported device {sym.device}")

@@ -567,7 +567,7 @@ def _demap_case(name, dev):
         cell = Cell(n_prb=100, cell_id=42)
         args = (cell, 6, 1, 0x1234, dci.size_0_1a(100), True, torch.device(dev))
         _, _, scr, _, _, _ = control._blind_tables(*args)
-        res32, buf32 = control._blind_tables32(*args)
+        res32, buf32, _ = control._blind_tables32(*args)
         return (rnd_sym(4, cell.n_sym_sf * cell.n_sc), rnd_nv(4, 1), 2, scr, buf32, res32, 0,
                 scr.numel())
     if name == "1 PRB MCS 0 PUSCH (R=3)":
@@ -604,6 +604,77 @@ def test_demap_kernel_matches_plain(cuda_device, name):
     torch.cuda.synchronize()
     assert demap.launches == before + 1
     assert (form, qm, r, 4, got.shape[-1]) in demap.shapes
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("name", ["flagship row in one tile (over budget, chunked)",
+                                  "OTA grant 100 PRB MCS 6, B=1 (cluster)"])
+def test_demap_kernel_chunked_and_split(cuda_device, name):
+    """The tiled kernel's chunked range (the flagship's whole row as one
+    segment: 90,000 bits, more than one CTA's shared memory) and a segment
+    split over a cluster (B=1) = the plain version bit for bit, one launch."""
+    from srsue_tpu_torch import bench_kernel_variants
+    from srsue_tpu_torch.kernels import demap
+    from srsue_tpu_torch.phy import ratematch
+
+    chunked = "chunked" in name
+    c = bench_kernel_variants.demap_case(
+        "flagship PDSCH B=256" if chunked else "OTA grant B=1", cuda_device)
+    ranges = None if chunked else c["ranges"]
+    del c["ranges"]
+    n, d, n_e = c["sym"].shape[0], c["inv"].shape[0], c["hi"] - c["lo"]
+    p = demap.plan(n, d, None if chunked else d // ranges.shape[0], n_e, c["qm"])
+    live = c["inv"][(c["inv"] >= 0) & (c["inv"] < n_e)]
+    nsym = (c["lo"] + int(live.max())) // c["qm"] - (c["lo"] + int(live.min())) // c["qm"] + 1
+    if chunked:
+        assert p.tiles == 1 and nsym > p.csize * p.bs
+    else:
+        assert p.csize > 1 and p.tiles * p.csize < 132
+    before = demap.launches
+    got = ratematch.demap_dematch(**c, ranges=ranges)
+    ref = ratematch.demap_dematch_plain(**c)
+    torch.cuda.synchronize()
+    assert demap.launches == before + 1
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("qm", [2, 4, 6])
+def test_demap_kernel_special_values(cuda_device, qm):
+    """Ties between levels, +-0, huge values, +-inf and NaN among the
+    symbols, tiny and NaN noise, through a table of 3 repeats with erasures
+    and in the LLR form: kernel = plain bit for bit on the card, NaNs
+    included."""
+    from srsue_tpu_torch import bench_kernel_variants
+    from srsue_tpu_torch.kernels import demap
+    from srsue_tpu_torch.phy import modulation, ratematch
+
+    sym, nv, scr, inv = bench_kernel_variants.demap_special_case(qm, 8, cuda_device, qm)
+    before = demap.launches
+    got = ratematch.demap_dematch(sym, nv, qm, scr, inv)
+    ref = ratematch.demap_dematch_plain(sym, nv, qm, scr, inv)
+    llr = modulation.demodulate_soft(sym, qm, nv)
+    llr_ref = modulation.demodulate_soft_plain(sym, qm, nv)
+    torch.cuda.synchronize()
+    assert demap.launches == before + 2
+    assert bool(ref.isnan().any()) and bool(llr_ref.isnan().any())
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    np.testing.assert_array_equal(_bits(llr), _bits(llr_ref))
+
+
+def test_demap_gather_variant_matches_plain(cuda_device):
+    """The softbuffer form's earlier design, kept for the benchmark, gives
+    the same bits; its launches count apart from the path's."""
+    from srsue_tpu_torch import bench_kernel_variants
+    from srsue_tpu_torch.kernels import demap
+    from srsue_tpu_torch.phy import ratematch
+
+    c = bench_kernel_variants.demap_case("uplink PUSCH B=256", cuda_device)
+    before, gathered = demap.launches, demap.gather_launches
+    got = bench_kernel_variants.demap_variants(c)["demap_gather"]()
+    c.pop("ranges")
+    ref = ratematch.demap_dematch_plain(**c)
+    torch.cuda.synchronize()
+    assert (demap.launches, demap.gather_launches) == (before, gathered + 1)
     np.testing.assert_array_equal(_bits(got), _bits(ref))
 
 
