@@ -1,0 +1,142 @@
+"""The LTE turbo encoder on the host (36.212 5.1.3.2): rate-1/3 PCCC with
+the QPP interleaver and trellis termination, for the transmitter."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+# --- QPP interleaver table: 36.212 Table 5.1.3-3 (K, f1, f2) ---------------
+QPP_TABLE: dict[int, tuple[int, int]] = {
+    40: (3, 10), 48: (7, 12), 56: (19, 42), 64: (7, 16), 72: (7, 18),
+    80: (11, 20), 88: (5, 22), 96: (11, 24), 104: (7, 26), 112: (41, 84),
+    120: (103, 90), 128: (15, 32), 136: (9, 34), 144: (17, 108), 152: (9, 38),
+    160: (21, 120), 168: (101, 84), 176: (21, 44), 184: (57, 46), 192: (23, 48),
+    200: (13, 50), 208: (27, 52), 216: (11, 36), 224: (27, 56), 232: (85, 58),
+    240: (29, 60), 248: (33, 62), 256: (15, 32), 264: (17, 198), 272: (33, 68),
+    280: (103, 210), 288: (19, 36), 296: (19, 74), 304: (37, 76), 312: (19, 78),
+    320: (21, 120), 328: (21, 82), 336: (115, 84), 344: (193, 86), 352: (21, 44),
+    360: (133, 90), 368: (81, 46), 376: (45, 94), 384: (23, 48), 392: (243, 98),
+    400: (151, 40), 408: (155, 102), 416: (25, 52), 424: (51, 106), 432: (47, 72),
+    440: (91, 110), 448: (29, 168), 456: (29, 114), 464: (247, 58), 472: (29, 118),
+    480: (89, 180), 488: (91, 122), 496: (157, 62), 504: (55, 84), 512: (31, 64),
+    528: (17, 66), 544: (35, 68), 560: (227, 420), 576: (65, 96), 592: (19, 74),
+    608: (37, 76), 624: (41, 234), 640: (39, 80), 656: (185, 82), 672: (43, 252),
+    688: (21, 86), 704: (155, 44), 720: (79, 120), 736: (139, 92), 752: (23, 94),
+    768: (217, 48), 784: (25, 98), 800: (17, 80), 816: (127, 102), 832: (25, 52),
+    848: (239, 106), 864: (17, 48), 880: (137, 110), 896: (215, 112),
+    912: (29, 114), 928: (15, 58), 944: (147, 118), 960: (29, 60), 976: (59, 122),
+    992: (65, 124), 1008: (55, 84), 1024: (31, 64), 1056: (17, 66),
+    1088: (171, 204), 1120: (67, 140), 1152: (35, 72), 1184: (19, 74),
+    1216: (39, 76), 1248: (19, 78), 1280: (199, 240), 1312: (21, 82),
+    1344: (211, 252), 1376: (21, 86), 1408: (43, 88), 1440: (149, 60),
+    1472: (45, 92), 1504: (49, 846), 1536: (71, 48), 1568: (13, 28),
+    1600: (17, 80), 1632: (25, 102), 1664: (183, 104), 1696: (55, 954),
+    1728: (127, 96), 1760: (27, 110), 1792: (29, 112), 1824: (29, 114),
+    1856: (57, 116), 1888: (45, 354), 1920: (31, 120), 1952: (59, 610),
+    1984: (185, 124), 2016: (113, 420), 2048: (31, 64), 2112: (17, 66),
+    2176: (171, 136), 2240: (209, 420), 2304: (253, 216), 2368: (367, 444),
+    2432: (265, 456), 2496: (181, 468), 2560: (39, 80), 2624: (27, 164),
+    2688: (127, 504), 2752: (143, 172), 2816: (43, 88), 2880: (29, 300),
+    2944: (45, 92), 3008: (157, 188), 3072: (47, 96), 3136: (13, 28),
+    3200: (111, 240), 3264: (443, 204), 3328: (51, 104), 3392: (51, 212),
+    3456: (451, 192), 3520: (257, 220), 3584: (57, 336), 3648: (313, 228),
+    3712: (271, 232), 3776: (179, 236), 3840: (331, 120), 3904: (363, 244),
+    3968: (375, 248), 4032: (127, 168), 4096: (31, 64), 4160: (33, 130),
+    4224: (43, 264), 4288: (33, 134), 4352: (477, 408), 4416: (35, 138),
+    4480: (233, 280), 4544: (357, 142), 4608: (337, 480), 4672: (37, 146),
+    4736: (71, 444), 4800: (71, 120), 4864: (37, 152), 4928: (39, 462),
+    4992: (127, 234), 5056: (39, 158), 5120: (39, 80), 5184: (31, 96),
+    5248: (113, 902), 5312: (41, 166), 5376: (251, 336), 5440: (43, 170),
+    5504: (21, 86), 5568: (43, 174), 5632: (45, 176), 5696: (45, 178),
+    5760: (161, 120), 5824: (89, 182), 5888: (323, 184), 5952: (47, 186),
+    6016: (23, 94), 6080: (47, 190), 6144: (263, 480),
+}
+
+VALID_K = np.array(sorted(QPP_TABLE), dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=256)
+def qpp_perm(k: int) -> np.ndarray:
+    """pi(i) = (f1*i + f2*i^2) mod K. x'_i = x_{pi(i)} feeds encoder 2."""
+    f1, f2 = QPP_TABLE[k]
+    i = np.arange(k, dtype=np.int64)
+    return (f1 * i + f2 * i * i) % k
+
+
+@functools.lru_cache(maxsize=1)
+def _trellis():
+    """(next_state[8,2], parity[8,2], term_u[8]) of the constituent RSC.
+
+    State bits (r1, r2, r3) with r1 newest; feedback g0 = 1 + D^2 + D^3
+    (f = r2 ^ r3), register input a = u ^ f, parity g1 = 1 + D + D^3
+    (p = a ^ r1 ^ r3), next state (a, r1, r2)."""
+    ns = np.zeros((8, 2), np.int32)
+    par = np.zeros((8, 2), np.int32)
+    term_u = np.zeros(8, np.int32)
+    for s in range(8):
+        r1, r2, r3 = (s >> 2) & 1, (s >> 1) & 1, s & 1
+        f = r2 ^ r3
+        term_u[s] = f
+        for u in (0, 1):
+            a = u ^ f
+            ns[s, u] = (a << 2) | (r1 << 1) | r2
+            par[s, u] = a ^ r1 ^ r3
+    return ns, par, term_u
+
+
+_IMPULSE_PERIOD = 7  # 1/(1 + D^2 + D^3): primitive, impulse response 1011100 repeating
+_IMPULSE_TAPS = (0, 2, 3, 4)  # the delays (mod 7) where that response is 1
+
+
+def _rsc_encode(bits: np.ndarray):
+    """RSCs over the rows of [n, K] bits, vectorised over the whole block:
+    (parity [n, K], tail_sys [n, 3], tail_par [n, 3]).
+
+    The register input a_t = u_t ^ a_{t-2} ^ a_{t-3} is u filtered by
+    1/(1 + D^2 + D^3), whose impulse response has period 7 and is 1 at the
+    delays 0, 2, 3, 4 (mod 7). With Q the XOR prefix of u within each
+    residue class mod 7 (Q_t = u_t ^ Q_{t-7}), a_t = Q_t ^ Q_{t-2} ^ Q_{t-3}
+    ^ Q_{t-4}; the parity is p_t = a_t ^ a_{t-1} ^ a_{t-3} and the state after
+    K bits is (a_{K-1}, a_{K-2}, a_{K-3})."""
+    n, k = bits.shape
+    m = -(-k // _IMPULSE_PERIOD)
+    u = np.zeros((n, m * _IMPULSE_PERIOD), np.uint8)
+    u[:, :k] = bits
+    q = np.bitwise_xor.accumulate(u.reshape(n, m, _IMPULSE_PERIOD), axis=1).reshape(n, -1)
+    pad = 4  # a zero history before t = 0
+    qp = np.concatenate([np.zeros((n, pad), np.uint8), q[:, :k]], axis=1)
+    a = np.zeros((n, pad + k), np.uint8)
+    for d in _IMPULSE_TAPS:
+        a[:, pad:] ^= qp[:, pad - d:pad - d + k]
+    p = a[:, pad:] ^ a[:, pad - 1:pad - 1 + k] ^ a[:, pad - 3:pad - 3 + k]
+    # trellis termination: 3 steps from the final state, input = feedback
+    ns, par, term_u = _trellis()
+    s = (a[:, pad + k - 1].astype(np.int64) << 2) | (a[:, pad + k - 2] << 1) | a[:, pad + k - 3]
+    tail_sys = np.empty((n, 3), np.uint8)
+    tail_par = np.empty((n, 3), np.uint8)
+    for i in range(3):
+        uu = term_u[s]
+        tail_sys[:, i] = uu
+        tail_par[:, i] = par[s, uu]
+        s = ns[s, uu]
+    assert not s.any()
+    return p, tail_sys, tail_par
+
+
+def encode(bits: np.ndarray) -> np.ndarray:
+    """Turbo-encode one code block (host): [K] {0,1} -> d streams [3, K+4]
+    with the tail multiplexing of 36.212 5.1.3.2.2."""
+    b = np.asarray(bits, np.uint8).ravel()
+    k = len(b)
+    if k not in QPP_TABLE:
+        raise ValueError(f"invalid turbo K={k}")
+    (z1, z2), (t1x, t2x), (t1z, t2z) = _rsc_encode(np.stack([b, b[qpp_perm(k)]]))
+    d = np.zeros((3, k + 4), np.uint8)
+    d[0, :k], d[1, :k], d[2, :k] = b, z1, z2
+    d[:, k + 0] = t1x[0], t1z[0], t1x[1]
+    d[:, k + 1] = t1z[1], t1x[2], t1z[2]
+    d[:, k + 2] = t2x[0], t2z[0], t2x[1]
+    d[:, k + 3] = t2z[1], t2x[2], t2z[2]
+    return d
