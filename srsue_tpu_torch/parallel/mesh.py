@@ -46,6 +46,7 @@ import torch.distributed as dist
 from ..phy.cell import Cell
 from ..phy.pdsch import PdschCodec, equalized
 from ..utils.device import require_cuda
+from ..utils.trace import annotate
 
 TIMEOUT_S = 600.0  # a rank's joining and collectives give up after this
 
@@ -232,10 +233,11 @@ def shard_decode(cell: Cell, codec: PdschCodec, mesh: Mesh):
         tot = torch.stack([tb_ok.sum().to(torch.float64),
                            torch.tensor(float(b), dtype=torch.float64, device=iq.device),
                            (rsrp / torch.clamp_min(nvar, 1e-12)).sum().to(torch.float64)])
-        all_reduce(tot, mesh)
-        if int(tot[1]) != b * mesh.size:
-            raise ValueError(f"uneven carrier shards: {b} here, {int(tot[1])} over "
-                             f"{mesh.size} ranks")
+        with annotate("shard.exchange"):
+            all_reduce(tot, mesh)
+            if int(tot[1]) != b * mesh.size:
+                raise ValueError(f"uneven carrier shards: {b} here, {int(tot[1])} over "
+                                 f"{mesh.size} ranks")
         n_ok = tot[0].to(torch.int32)
         snr_lin = (tot[2] / tot[1]).to(torch.float32)
         snr = 10.0 * torch.log10(torch.clamp_min(snr_lin, 1e-12))

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve
+from ..utils.trace import annotate
 from . import (chest, crc, equalize, modulation, ofdm, ratematch, regrid, segmentation, seq,
                turbo)
 from .cell import Cell, DlGrant
@@ -185,11 +186,12 @@ class PdschCodec:
         of ``dematch(demap_llrs(x_eq, nv_eff))``, bit for bit, by one
         ``ratematch.demap_dematch`` per K-group (on the card one launch of
         the demap kernel each, tiled by code block)."""
-        return [self._filler(first, ratematch.demap_dematch(
-                    x_eq, nv_eff, self.qm, self._scr, inv32, lo=lo, hi=hi,
-                    ranges=ranges).reshape(x_eq.shape[:-1] + (count, 3 * (k + 4))))
-                for (k, first, count, lo, hi, _), inv32, ranges
-                in zip(self.groups, self._inv32, self._ranges)]
+        with annotate("pdsch.demap_dematch"):
+            return [self._filler(first, ratematch.demap_dematch(
+                        x_eq, nv_eff, self.qm, self._scr, inv32, lo=lo, hi=hi,
+                        ranges=ranges).reshape(x_eq.shape[:-1] + (count, 3 * (k + 4))))
+                    for (k, first, count, lo, hi, _), inv32, ranges
+                    in zip(self.groups, self._inv32, self._ranges)]
 
     def decode_blocks(self, groups: list[torch.Tensor]):
         """Softbuffer groups -> (hard [..., sum K] uint8, blk_ok [..., C]
@@ -197,32 +199,34 @@ class PdschCodec:
         forced (``turbo.decode_forced``) or masked with CRC freezing
         (``turbo.decode``), with the half-iteration kernel ``kernel``."""
         hards, oks, iters = [], [], []
-        for (k, _, count, *_), buf in zip(self.groups, groups):
-            lead = buf.shape[:-2]
-            d = buf.reshape(-1, 3, k + 4)
-            if self.forced:
-                hard, it, ok = turbo.decode_forced(
-                    d, k, self.n_turbo_iters, self._blk_crc[k], kernel=self.kernel)
-            else:
-                hard, it, ok = turbo.decode(
-                    d, k, self.n_turbo_iters, self._blk_crc[k],
-                    early_exit=self.early_exit, kernel=self.kernel)
-            hards.append(hard.reshape(lead + (count * k,)))
-            oks.append(ok.reshape(lead + (count,)))
-            iters.append(it.reshape(lead + (count,)))
-        return torch.cat(hards, -1), torch.cat(oks, -1), torch.cat(iters, -1)
+        with annotate("pdsch.turbo"):
+            for (k, _, count, *_), buf in zip(self.groups, groups):
+                lead = buf.shape[:-2]
+                d = buf.reshape(-1, 3, k + 4)
+                if self.forced:
+                    hard, it, ok = turbo.decode_forced(
+                        d, k, self.n_turbo_iters, self._blk_crc[k], kernel=self.kernel)
+                else:
+                    hard, it, ok = turbo.decode(
+                        d, k, self.n_turbo_iters, self._blk_crc[k],
+                        early_exit=self.early_exit, kernel=self.kernel)
+                hards.append(hard.reshape(lead + (count * k,)))
+                oks.append(ok.reshape(lead + (count,)))
+                iters.append(it.reshape(lead + (count,)))
+            return torch.cat(hards, -1), torch.cat(oks, -1), torch.cat(iters, -1)
 
     def assemble_tb(self, hard: torch.Tensor, blk_ok: torch.Tensor):
         """Hard blocks -> (payload [..., tbs] uint8, tb_ok [...] bool); the
         TB CRC24A syndrome is an exact float32 product (TF32 off)."""
         tbs = self.grant.tbs
-        bits = hard[..., self._tb_pos]
-        payload = bits[..., :tbs]
-        if self.plan.c == 1:
-            return payload, blk_ok[..., 0]
-        syn = torch.remainder(torch.round(payload.to(torch.float32) @ self._tb_crc)
-                              + bits[..., tbs:].to(torch.float32), 2.0)
-        return payload, (syn.sum(-1) == 0) & blk_ok.all(-1)
+        with annotate("pdsch.tb_crc"):
+            bits = hard[..., self._tb_pos]
+            payload = bits[..., :tbs]
+            if self.plan.c == 1:
+                return payload, blk_ok[..., 0]
+            syn = torch.remainder(torch.round(payload.to(torch.float32) @ self._tb_crc)
+                                  + bits[..., tbs:].to(torch.float32), 2.0)
+            return payload, (syn.sum(-1) == 0) & blk_ok.all(-1)
 
     def decode_softbuffers(self, groups: list[torch.Tensor]):
         """Softbuffer groups -> (payload [..., tbs] uint8, tb_ok [...] bool,
@@ -250,7 +254,8 @@ def equalized(cell: Cell, codec: PdschCodec, subframe: int, iq: torch.Tensor):
     CRS channel estimate (port 0) -> PDSCH RE extract -> ZF. Returns
     (x_eq, nv_eff, nvar, rsrp); ``codec.decode(x_eq, nv_eff)`` finishes the
     chain (``entry``, ``parallel.shard_decode``, ``bler.sweep_pdsch``)."""
-    grid = ofdm.demodulate(cell, iq)
-    h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
-    x_eq, nv_eff = equalize.zf(codec.extract_re(grid), codec.extract_re(h), nvar)
-    return x_eq, nv_eff, nvar, rsrp
+    with annotate("pdsch.frontend"):
+        grid = ofdm.demodulate(cell, iq)
+        h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
+        x_eq, nv_eff = equalize.zf(codec.extract_re(grid), codec.extract_re(h), nvar)
+        return x_eq, nv_eff, nvar, rsrp

@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.trace import annotate
+
 # --- QPP interleaver table: 36.212 Table 5.1.3-3 (K, f1, f2) ---------------
 QPP_TABLE: dict[int, tuple[int, int]] = {
     40: (3, 10), 48: (7, 12), 56: (19, 42), 64: (7, 16), 72: (7, 18),
@@ -334,25 +336,29 @@ def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
     ab1, bb1, ab2, bb2 = (torch.zeros(B, W, 8, device=dev) for _ in range(4))
     stop_early = early_exit and crc_m is not None
     for _ in range(n_iters):
-        if stop_early and bool(done.all()):
-            break
-        le12, ab1n, bb1n = bcjr_half_windowed(
-            sys1, par1, le21, t1s, t1p, ab1, bb1, lw, kernel)
-        le21_raw, ab2n, bb2n = bcjr_half_windowed(
-            sys2, par2, le12[:, perm], t2s, t2p, ab2, bb2, lw, kernel)
-        le21_new = le21_raw[:, inv]
-        hard_new = (sys1 + le12 + le21_new < 0).to(torch.uint8)
-        ok = _ok_of(hard_new, crc_m)
-        m = done[:, None]
-        m3 = done[:, None, None]
-        le21 = torch.where(m, le21, le21_new)
-        hard = torch.where(m, hard, hard_new)
-        ab1 = torch.where(m3, ab1, ab1n)
-        bb1 = torch.where(m3, bb1, bb1n)
-        ab2 = torch.where(m3, ab2, ab2n)
-        bb2 = torch.where(m3, bb2, bb2n)
-        iters += (~done).to(torch.int32)
-        done = done | ok
+        if stop_early:
+            with annotate("turbo.exit_check"):
+                stop = bool(done.all())
+            if stop:
+                break
+        with annotate("turbo.iteration"):
+            le12, ab1n, bb1n = bcjr_half_windowed(
+                sys1, par1, le21, t1s, t1p, ab1, bb1, lw, kernel)
+            le21_raw, ab2n, bb2n = bcjr_half_windowed(
+                sys2, par2, le12[:, perm], t2s, t2p, ab2, bb2, lw, kernel)
+            le21_new = le21_raw[:, inv]
+            hard_new = (sys1 + le12 + le21_new < 0).to(torch.uint8)
+            ok = _ok_of(hard_new, crc_m)
+            m = done[:, None]
+            m3 = done[:, None, None]
+            le21 = torch.where(m, le21, le21_new)
+            hard = torch.where(m, hard, hard_new)
+            ab1 = torch.where(m3, ab1, ab1n)
+            bb1 = torch.where(m3, bb1, bb1n)
+            ab2 = torch.where(m3, ab2, ab2n)
+            bb2 = torch.where(m3, bb2, bb2n)
+            iters += (~done).to(torch.int32)
+            done = done | ok
     return hard, iters, _ok_of(hard, crc_m) | done
 
 
@@ -388,8 +394,11 @@ def decode_forced(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
     le12 = le21_raw = torch.zeros(B, k, device=dev)
     al1 = bf1 = al2 = bf2 = torch.zeros(B, W, 8, device=dev)
     for _ in range(n_iters):
-        le12, al1, bf1 = bcjr_half_fused(sys1, par1, le21_raw, inv32, al1, bf1, bt1, lw, kernel)
-        le21_raw, al2, bf2 = bcjr_half_fused(sys2, par2, le12, perm32, al2, bf2, bt2, lw, kernel)
+        with annotate("turbo.iteration"):
+            le12, al1, bf1 = bcjr_half_fused(sys1, par1, le21_raw, inv32, al1, bf1, bt1, lw,
+                                             kernel)
+            le21_raw, al2, bf2 = bcjr_half_fused(sys2, par2, le12, perm32, al2, bf2, bt2, lw,
+                                                 kernel)
     hard = (sys1 + le12 + le21_raw[:, inv] < 0).to(torch.uint8)
     iters = torch.full((B,), n_iters, dtype=torch.int32, device=dev)
     return hard, iters, _ok_of(hard, _crc_of(crc_mat, dev))

@@ -9,7 +9,8 @@ A [batch] axis of independent subframes rides through every stage. The
 stages run eagerly on the device of the input with cached codecs and
 tables. Control decisions surface to the host between stages, as at the
 PHY -> MAC boundary: the CFI (one sync) and the blind-search hits (one per
-DCI format searched).
+DCI format searched). Each stage is a span (``utils.trace.SPANS``) under
+``ue_dl.process`` while a profiler records.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve, to_host
+from ..utils.trace import annotate
 from . import chest, control, dci, equalize, ofdm
 from .cell import Cell, DlGrant
 from .pdsch import codec as get_codec
@@ -59,13 +61,14 @@ class UeDl:
     # --- stage 1: front end ----------------------------------------------
     def _front_end(self, iq: torch.Tensor, subframe: int):
         cell = self.cell
-        grid = ofdm.demodulate(cell, iq)
-        hs, nvar, rsrp = self._estimate(grid, subframe)
-        if len(hs) == 2:
-            g_eq, nv_eff = control.sfbc_equalize_control(cell, grid, hs[0], hs[1], nvar)
-        else:
-            g_eq, nv_eff = equalize.zf(grid, hs[0], nvar)
-        return grid, hs, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp)
+        with annotate("ue_dl.frontend"):
+            grid = ofdm.demodulate(cell, iq)
+            hs, nvar, rsrp = self._estimate(grid, subframe)
+            if len(hs) == 2:
+                g_eq, nv_eff = control.sfbc_equalize_control(cell, grid, hs[0], hs[1], nvar)
+            else:
+                g_eq, nv_eff = equalize.zf(grid, hs[0], nvar)
+            return grid, hs, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp)
 
     def _estimate(self, grid: torch.Tensor, subframe: int):
         """(channel estimate of each port, port 0's noise and RSRP)."""
@@ -77,16 +80,18 @@ class UeDl:
     # --- stage 2: grant-known PDSCH chain --------------------------------
     def _pdsch_chain(self, grid, hs, nvar, grant: DlGrant, rnti: int, subframe: int,
                      cfi: int):
-        codec = get_codec(self.cell, grant, rnti, subframe, cfi, self.n_turbo_iters,
-                          self.device)
-        y = codec.extract_re(grid)
-        if len(hs) == 2:
-            x_eq, nv_eff = equalize.alamouti_combine(
-                y, codec.extract_re(hs[0]), codec.extract_re(hs[1]), nvar)
-        else:
-            x_eq, nv_eff = equalize.zf(y, codec.extract_re(hs[0]), nvar)
-        payload, tb_ok, _, iters = codec.decode(x_eq, nv_eff)
-        return to_host(payload), to_host(tb_ok), to_host(iters)
+        with annotate("ue_dl.pdsch"):
+            codec = get_codec(self.cell, grant, rnti, subframe, cfi, self.n_turbo_iters,
+                              self.device)
+            y = codec.extract_re(grid)
+            if len(hs) == 2:
+                x_eq, nv_eff = equalize.alamouti_combine(
+                    y, codec.extract_re(hs[0]), codec.extract_re(hs[1]), nvar)
+            else:
+                x_eq, nv_eff = equalize.zf(y, codec.extract_re(hs[0]), nvar)
+            payload, tb_ok, _, iters = codec.decode(x_eq, nv_eff)
+            with annotate("ue_dl.to_host"):
+                return to_host(payload), to_host(tb_ok), to_host(iters)
 
     def decode_pdsch(self, iq, grant: DlGrant, rnti: int, subframe: int, cfi: int = 1):
         """Grant-known batched PDSCH decode: [batch, sf_len] IQ ->
@@ -100,9 +105,10 @@ class UeDl:
                       ue_specific: bool, formats: tuple) -> dict:
         """{format: (hard, ok)}: one batched search (one Viterbi launch) per
         DCI size, over every candidate and batch element."""
-        return {f: control.pdcch_blind_batch(self.cell, g_eq, nv_eff, subframe, cfi, rnti,
-                                             self._dci_len(f), ue_specific=ue_specific)
-                for f in formats}
+        with annotate("ue_dl.blind_search"):
+            return {f: control.pdcch_blind_batch(self.cell, g_eq, nv_eff, subframe, cfi, rnti,
+                                                 self._dci_len(f), ue_specific=ue_specific)
+                    for f in formats}
 
     def _dci_len(self, fmt: str) -> int:
         n_rb = self.cell.n_prb
@@ -135,34 +141,39 @@ class UeDl:
         formats: DCI sizes to blind-search: "0_1a" always; add "1" for the
         TM1/TM2 C-RNTI search, "1c" for SI/P/RA-RNTI."""
         cell = self.cell
-        grid, hs, nvar, g_eq, nv_eff, m = self._front_end(self._iq(iq), subframe)
-        cfi_dev, _ = control.pcfich_decode(cell, g_eq, nv_eff, subframe)
-        cfi = int(to_host(cfi_dev).reshape(-1)[0])
+        with annotate("ue_dl.process"):
+            grid, hs, nvar, g_eq, nv_eff, m = self._front_end(self._iq(iq), subframe)
+            with annotate("ue_dl.control"):
+                with annotate("ue_dl.pcfich"):
+                    cfi_dev, _ = control.pcfich_decode(cell, g_eq, nv_eff, subframe)
+                    cfi = int(to_host(cfi_dev).reshape(-1)[0])
 
-        raw = self._blind_search(g_eq, nv_eff, subframe, cfi, rnti, ue_specific,
-                                 tuple(formats))
-        batched = g_eq.ndim == 3
-        n_batch = g_eq.shape[0] if batched else 1
-        n_cce, _ = control.pdcch_geometry(cell, cfi)
-        cands = control.search_space_candidates(n_cce, rnti, subframe, ue_specific)
-        hits_per_elem: list[list] = [[] for _ in range(n_batch)]
-        for f in formats:
-            hard, ok = (to_host(x) for x in raw[f])
-            if not batched:
-                hard, ok = hard[None], ok[None]
-            n = self._dci_len(f)
-            for b in range(n_batch):
-                for _, _, bits in control.blind_hits(cands, hard[b], ok[b], n):
-                    hits_per_elem[b].append((f, self._unpack(f, bits)))
+                raw = self._blind_search(g_eq, nv_eff, subframe, cfi, rnti, ue_specific,
+                                         tuple(formats))
+                with annotate("ue_dl.blind_hits"):
+                    batched = g_eq.ndim == 3
+                    n_batch = g_eq.shape[0] if batched else 1
+                    n_cce, _ = control.pdcch_geometry(cell, cfi)
+                    cands = control.search_space_candidates(n_cce, rnti, subframe, ue_specific)
+                    hits_per_elem: list[list] = [[] for _ in range(n_batch)]
+                    for f in formats:
+                        hard, ok = (to_host(x) for x in raw[f])
+                        if not batched:
+                            hard, ok = hard[None], ok[None]
+                        n = self._dci_len(f)
+                        for b in range(n_batch):
+                            for _, _, bits in control.blind_hits(cands, hard[b], ok[b], n):
+                                hits_per_elem[b].append((f, self._unpack(f, bits)))
 
-        grants = [g for g in (self._to_dl_grant(d) for _, d in hits_per_elem[0])
-                  if g is not None]
-        metrics = {k: to_host(v) for k, v in m.items()}
-        if not grants:
-            return DlResult(None, None, None, cfi, [], metrics,
-                            hits_per_elem=hits_per_elem, decoded=[])
-        decoded = [(g,) + self._pdsch_chain(grid, hs, nvar, g, rnti, subframe, cfi)
-                   for g in grants]
-        _, payload, tb_ok, iters = decoded[0]
-        return DlResult(payload, tb_ok, iters, cfi, grants, metrics,
-                        hits_per_elem=hits_per_elem, decoded=decoded)
+            grants = [g for g in (self._to_dl_grant(d) for _, d in hits_per_elem[0])
+                      if g is not None]
+            with annotate("ue_dl.metrics"):
+                metrics = {k: to_host(v) for k, v in m.items()}
+            if not grants:
+                return DlResult(None, None, None, cfi, [], metrics,
+                                hits_per_elem=hits_per_elem, decoded=[])
+            decoded = [(g,) + self._pdsch_chain(grid, hs, nvar, g, rnti, subframe, cfi)
+                       for g in grants]
+            _, payload, tb_ok, iters = decoded[0]
+            return DlResult(payload, tb_ok, iters, cfi, grants, metrics,
+                            hits_per_elem=hits_per_elem, decoded=decoded)

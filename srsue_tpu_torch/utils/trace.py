@@ -1,74 +1,57 @@
-"""Per-TTI trace ring buffer with binary dump, a stage timer, and the
-device profiler: counterpart of ``srsue_tpu/utils/trace.py``.
+"""The port's spans and the device profiler's exporter: counterpart of
+``srsue_tpu/utils/trace.py``'s ``XlaTrace`` and ``annotate``.
 
-``Trace`` and ``StageTimer`` are the reference's host code, unchanged (the
-dump is byte-identical). ``ProfilerTrace`` stands in for the reference's
-``XlaTrace`` (jax.profiler) with the same contract: ``logdir``, ``active``,
-an ``errors`` list, and a trace written into ``logdir``; here a Chrome trace
-by ``torch.profiler``, which records the CUDA kernels when a GPU is present.
-``annotate`` is ``torch.profiler.record_function``.
+``annotate(name)`` is a named host span on ``torch.profiler``'s timeline,
+the clock of the device trace: ``torch.profiler.record_function`` while a
+profiler records, and otherwise one shared no-op context, which adds no
+sync, no CUDA event and no allocation. Spans live in the profiler's memory
+and go out with its trace. ``SPANS`` names every span the receive path
+records; ``turbo.exit_check`` is also its one counter (a span counted per
+step).
+
+``ProfilerTrace`` stands in for the reference's ``XlaTrace`` (jax.profiler)
+with the same contract: ``logdir``, ``active``, an ``errors`` list, and a
+trace written into ``logdir``; here a Chrome trace by ``torch.profiler``,
+which records the CUDA kernels when a GPU is present.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-import struct
 import time
 
-import numpy as np
 import torch
 
+# every span of the receive path; a child sits inside its parent's interval
+SPANS = (
+    "ue_dl.process",         # UeDl.process, the whole call (root)
+    "ue_dl.frontend",        # OFDM, CRS estimate(s), ZF or SFBC control combining, metrics
+    "ue_dl.control",         # PCFICH to the hits of every batch element
+    "ue_dl.pcfich",          # control's child: PCFICH decode and the CFI read
+    "ue_dl.blind_search",    # control's child: the batched search, its Viterbi launches
+    "ue_dl.blind_hits",      # control's child: hard bits and flags read, hits unpacked
+    "ue_dl.metrics",         # the channel metrics' host reads
+    "ue_dl.pdsch",           # one grant's PDSCH chain
+    "ue_dl.to_host",         # ue_dl.pdsch's child: payload, flags and iterations read
+    "pdsch.frontend",        # the grant-known frontend (pdsch.equalized)
+    "pdsch.demap_dematch",   # every K-group's demap kernel
+    "pdsch.turbo",           # the turbo driver over every K-group
+    "turbo.iteration",       # one pass of a turbo loop
+    "turbo.exit_check",      # counter: the early exit's host sync
+    "pdsch.tb_crc",          # the TB CRC
+    "shard.exchange",        # shard_decode's all_reduce through its check on the host
+)
 
-class Trace:
-    def __init__(self, capacity: int = 1 << 14):
-        self.tti = np.zeros(capacity, np.uint32)
-        self.val = np.zeros(capacity, np.float32)
-        self.n = 0
-        self.capacity = capacity
-        self.enabled = True
-
-    def push(self, tti: int, value: float) -> None:
-        if not self.enabled:
-            return
-        i = self.n % self.capacity
-        self.tti[i] = tti
-        self.val[i] = value
-        self.n += 1
-
-    def dump(self, path: str) -> None:
-        """Binary dump: uint32 count, then (uint32 tti, float32 value)*."""
-        k = min(self.n, self.capacity)
-        with open(path, "wb") as f:
-            f.write(struct.pack("<I", k))
-            order = np.arange(self.n - k, self.n) % self.capacity
-            rec = np.empty((k, 2), np.uint32)
-            rec[:, 0] = self.tti[order]
-            rec[:, 1] = self.val[order].view(np.uint32)
-            f.write(rec.tobytes())
-
-    @staticmethod
-    def load(path: str):
-        with open(path, "rb") as f:
-            (k,) = struct.unpack("<I", f.read(4))
-            rec = np.frombuffer(f.read(8 * k), np.uint32).reshape(k, 2)
-        return rec[:, 0].copy(), rec[:, 1].copy().view(np.float32)
+_NOOP = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
 
 
-class StageTimer:
-    """with StageTimer(trace, tti): ... — wall-clock stage timing in us
-    (the tr_log_start/tr_log_end pattern)."""
-
-    def __init__(self, trace: Trace, tti: int):
-        self.trace = trace
-        self.tti = tti
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.trace.push(self.tti, (time.perf_counter() - self.t0) * 1e6)
-        return False
+def annotate(name: str):
+    """A named host span in the profiler's timeline while a profiler
+    records (``torch.profiler.record_function``); otherwise the shared
+    no-op context. Whether one records is asked at each call."""
+    return torch.profiler.record_function(name) if _recording() else _NOOP
 
 
 class ProfilerTrace:
@@ -77,7 +60,7 @@ class ProfilerTrace:
     ``XlaTrace``.
 
     with ProfilerTrace("/tmp/prof") as t: run_things()
-    # t.path: the Chrome trace written into logdir
+    # t.path: the Chrome trace written into logdir, spans included
 
     A profiler that cannot start or stop leaves its message in `errors`
     instead of raising, as ``XlaTrace`` does.
@@ -113,9 +96,3 @@ class ProfilerTrace:
                 self.errors.append(f"torch profiler stop failed: {e}")
             self.active = False
         return False
-
-
-def annotate(name: str):
-    """Named host span in the profiler's timeline
-    (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)

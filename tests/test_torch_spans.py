@@ -1,0 +1,204 @@
+"""The port's spans (``utils/trace.py``'s ``annotate`` and ``SPANS``) on the
+CPU: the span tree of ``UeDl.process`` on 6 PRB TM1 and TM2 subframes from
+the port's own transmitter, the turbo loops' iteration and exit-check
+counts, the shared no-op with no profiler running, ``shard_decode``'s
+exchange on each of two gloo ranks, and results that do not change while
+spans record. Imports no JAX: the spawned ranks import this module."""
+
+import ast
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from srsue_tpu_torch.parallel import mesh
+from srsue_tpu_torch.phy import control, dci, enb_tx, pdsch, turbo
+from srsue_tpu_torch.phy.cell import Cell
+from srsue_tpu_torch.phy.pdsch import PdschCodec
+from srsue_tpu_torch.phy.ra import dl_grant
+from srsue_tpu_torch.phy.ue_dl import UeDl
+from srsue_tpu_torch.utils import trace
+
+PACKAGE = Path(__file__).resolve().parent.parent / "srsue_tpu_torch"
+# a 6 PRB carrier, CFI 3, C-RNTI 0x1234 granted the whole band at MCS 20 by a
+# DCI 1A on CCE 0 with L=4, 8 turbo iterations, AWGN 26 dB
+CFG = {"n_prb": 6, "cell_id": 42, "subframe": 6, "cfi": 3, "rnti": 0x1234, "mcs": 20,
+       "turbo_iters": 8, "snr_db": 26.0}
+PORTS = {"tm1": 1, "tm2": 2}
+# UeDl.process's spans with one grant decoded, and each one's enclosing span
+PARENT = {"ue_dl.process": None, "ue_dl.frontend": "ue_dl.process",
+          "ue_dl.control": "ue_dl.process", "ue_dl.pcfich": "ue_dl.control",
+          "ue_dl.blind_search": "ue_dl.control", "ue_dl.blind_hits": "ue_dl.control",
+          "ue_dl.metrics": "ue_dl.process", "ue_dl.pdsch": "ue_dl.process",
+          "ue_dl.to_host": "ue_dl.pdsch", "pdsch.demap_dematch": "ue_dl.pdsch",
+          "pdsch.turbo": "ue_dl.pdsch", "turbo.iteration": "pdsch.turbo",
+          "turbo.exit_check": "pdsch.turbo", "pdsch.tb_crc": "ue_dl.pdsch"}
+
+
+def _cell(tm: str) -> Cell:
+    return Cell(n_prb=CFG["n_prb"], cell_id=CFG["cell_id"], n_ports=PORTS[tm])
+
+
+def _iq(tm: str, batch: int = 2, seed: int = 41) -> torch.Tensor:
+    """`batch` noisy subframes, each with its own transport block: CRS of
+    every port, PCFICH, the DCI and the PDSCH (SFBC over both ports in TM2)."""
+    cell, sf, cfi, rnti = _cell(tm), CFG["subframe"], CFG["cfi"], CFG["rnti"]
+    codec = PdschCodec(cell, dl_grant(cell.n_prb, CFG["mcs"]), rnti, sf, cfi, device="cpu")
+    bits = dci.pack_1a(cell.n_prb, dci.Dci1A(riv=dci.riv_encode(cell.n_prb, 0, cell.n_prb),
+                                             mcs=CFG["mcs"], harq_pid=0, ndi=True, rv=0, tpc=0))
+    rng = np.random.default_rng(seed)
+    tds = []
+    for _ in range(batch):
+        grids = [enb_tx.empty_grid(cell) for _ in range(cell.n_ports)]
+        for p, grid in enumerate(grids):
+            enb_tx.add_crs(cell, grid, sf, p)
+        syms = codec.encode_symbols(rng.integers(0, 2, codec.grant.tbs).astype(np.uint8))
+        if cell.n_ports == 2:
+            control.pcfich_map_tm2(cell, grids, sf, cfi)
+            control.pdcch_map_tm2(cell, grids, sf, cfi, bits, rnti, 0, 4)
+            codec.map_to_grid_tm2(grids, syms)
+        else:
+            control.pcfich_map(cell, grids[0], sf, cfi)
+            control.pdcch_map(cell, grids[0], sf, cfi, bits, rnti, 0, 4)
+            codec.map_to_grid(grids[0], syms)
+        tds.append(np.sum(enb_tx.to_waveform(cell, grids), axis=0))
+    td = np.stack(tds)
+    p_sig = float(np.mean(np.abs(td) ** 2)) * cell.nfft / cell.n_sc
+    return torch.as_tensor(enb_tx.awgn(rng, td, CFG["snr_db"], signal_power=p_sig)[0])
+
+
+def _span_events(path: str) -> list[dict]:
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def _parent(e: dict, events: list[dict]):
+    """The name of the innermost other span of e's thread that holds e."""
+    holders = [a for a in events if a is not e and a["tid"] == e["tid"]
+               and a["ts"] <= e["ts"] and e["ts"] + e["dur"] <= a["ts"] + a["dur"]]
+    return min(holders, key=lambda a: a["dur"])["name"] if holders else None
+
+
+def _recorded(fn, tmp_path):
+    with trace.ProfilerTrace(str(tmp_path / "prof")) as t:
+        out = fn()
+    assert t.errors == []
+    return out, _span_events(t.path)
+
+
+def _process(tm: str, iq: torch.Tensor):
+    ue = UeDl(_cell(tm), n_turbo_iters=CFG["turbo_iters"], device="cpu")
+    return ue.process(iq, CFG["subframe"], CFG["rnti"])
+
+
+@pytest.mark.parametrize("tm", ["tm1", "tm2"])
+def test_process_span_tree(tm, tmp_path):
+    """Every stage of one call under its root, the control layer's three
+    children inside ``ue_dl.control``; one exit check per iteration run and
+    one more where the loop stopped early."""
+    res, events = _recorded(lambda: _process(tm, _iq(tm)), tmp_path)
+    assert res.tb_ok is not None and res.tb_ok.all()
+    names = [e["name"] for e in events]
+    assert set(names) == set(PARENT) and set(names) <= set(trace.SPANS)
+    for e in events:
+        assert _parent(e, events) == PARENT[e["name"]], e["name"]
+    for name in ("ue_dl.process", "ue_dl.control", "ue_dl.pdsch", "pdsch.turbo"):
+        assert names.count(name) == 1, name
+
+    n = CFG["turbo_iters"]
+    codec = pdsch.codec(_cell(tm), res.grants[0], CFG["rnti"], CFG["subframe"], res.cfi, n,
+                        "cpu")
+    runs = [int(res.turbo_iters[:, first:first + count].max())
+            for _, first, count, *_ in codec.groups]
+    assert names.count("turbo.iteration") == sum(runs)
+    assert names.count("turbo.exit_check") == sum(r + 1 if r < n else n for r in runs)
+
+
+@pytest.mark.parametrize("tm", ["tm1", "tm2"])
+def test_results_unchanged_while_spans_record(tm, tmp_path):
+    iq = _iq(tm)
+    plain = _process(tm, iq)
+    rec, events = _recorded(lambda: _process(tm, iq), tmp_path)
+    assert events
+    for a, b in ((plain.payload, rec.payload), (plain.tb_ok, rec.tb_ok),
+                 (plain.turbo_iters, rec.turbo_iters)):
+        np.testing.assert_array_equal(a, b)
+    assert plain.cfi == rec.cfi and plain.grants == rec.grants
+    assert plain.hits_per_elem == rec.hits_per_elem
+    for k in plain.metrics:
+        np.testing.assert_array_equal(plain.metrics[k], rec.metrics[k])
+
+
+@pytest.mark.parametrize("form", ["forced", "masked"])
+def test_iterations_counted_without_exit_checks(form, tmp_path):
+    """Loops that run all their iterations: one ``turbo.iteration`` each, no
+    exit check (``decode_forced``, and ``decode`` without early exit)."""
+    k, n = 40, 3
+    d = torch.as_tensor(np.random.default_rng(5).normal(0, 2, (2, 3, k + 4)),
+                        dtype=torch.float32)
+    fn = (lambda: turbo.decode_forced(d, k, n)) if form == "forced" else \
+        (lambda: turbo.decode(d, k, n, early_exit=False))
+    (_, iters, _), events = _recorded(fn, tmp_path)
+    names = [e["name"] for e in events]
+    assert names.count("turbo.iteration") == n and "turbo.exit_check" not in names
+    assert iters.tolist() == [n, n]
+
+
+def test_annotate_is_a_shared_noop_until_a_profiler_records(tmp_path):
+    off = trace.annotate("ue_dl.process")
+    assert off is trace.annotate("pdsch.turbo")
+    with off, off:
+        torch.ones(8).cumsum(0)
+    with trace.ProfilerTrace(str(tmp_path / "prof")) as t:
+        on = trace.annotate("ue_dl.process")
+        assert on is not off
+        with on:
+            torch.ones(8).cumsum(0)
+    assert [e["name"] for e in _span_events(t.path)] == ["ue_dl.process"]
+
+
+def test_every_span_of_the_package_is_in_spans():
+    """The names the package gives ``annotate`` are exactly SPANS, which
+    holds each name once."""
+    used = set()
+    for path in PACKAGE.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "annotate"
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                used.add(node.args[0].value)
+    assert len(set(trace.SPANS)) == len(trace.SPANS)
+    assert used == set(trace.SPANS)
+
+
+def _exchange_rank(m, iq, logdir):
+    """One rank: shard_decode of its part of iq, once unrecorded and once
+    under the profiler; the spans recorded."""
+    cell = _cell("tm1")
+    codec = PdschCodec(cell, dl_grant(cell.n_prb, CFG["mcs"]), CFG["rnti"], CFG["subframe"],
+                       CFG["cfi"], CFG["turbo_iters"], device=m.device)
+    run = mesh.shard_decode(cell, codec, m)
+    x = torch.as_tensor(mesh.shard(iq, m))
+    run(x)
+    with trace.ProfilerTrace(f"{logdir}/rank{m.rank}") as t:
+        _, tb_ok, n_ok, _, _ = run(x)
+    return {"events": _span_events(t.path), "errors": t.errors, "n_ok": int(n_ok),
+            "tb_ok": tb_ok.numpy()}
+
+
+def test_shard_exchange_recorded_on_each_rank(tmp_path):
+    """Each rank's decode and its exchange, the collective started inside it
+    (gloo records it on its own thread)."""
+    iq = _iq("tm1").numpy()
+    out = mesh.launch(_exchange_rank, 2, "cpu", iq, str(tmp_path))
+    for o in out:
+        assert o["errors"] == [] and o["tb_ok"].all() and o["n_ok"] == 2
+        events = o["events"]
+        names = [e["name"] for e in events]
+        assert names.count("shard.exchange") == 1
+        assert {"pdsch.frontend", "pdsch.demap_dematch", "pdsch.turbo", "pdsch.tb_crc"} \
+            <= set(names)
+        ex = next(e for e in events if e["name"] == "shard.exchange")
+        coll = [e for e in events if e["name"] == "gloo:all_reduce"]
+        assert len(coll) == 1 and ex["ts"] <= coll[0]["ts"] <= ex["ts"] + ex["dur"]
