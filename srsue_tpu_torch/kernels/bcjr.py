@@ -31,11 +31,14 @@ replacing ``decode_forced_tiled`` / ``decode_forced_loop_tiled``).
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
 raises. ``launches[name]`` counts the launches of each kernel instance
 (``"fused"`` for the fused half), and ``shapes[name]`` holds the (windows,
-lw) of [windows, lw] each instance was launched at.
+lw) of [windows, lw] each instance was launched at. Under ``capturing`` (a
+CUDA graph's capture, which launches nothing) the wrappers' calls are only
+recorded, and ``count_replayed`` counts them again at each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -50,6 +53,7 @@ NORM_EVERY = 8  # trellis steps between state-0 normalisations (v2v3, v4, v5)
 
 launches = dict.fromkeys((*KERNELS, "fused"), 0)
 shapes: dict[str, set] = {name: set() for name in launches}
+_captured: list | None = None  # the (instance, shape) calls of the capture in progress
 
 
 # --------------------------------------------------------------- plain twins
@@ -202,6 +206,34 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
+def _count(name: str, shape: tuple) -> None:
+    if _captured is not None:
+        _captured.append((name, shape))
+        return
+    launches[name] += 1
+    shapes[name].add(shape)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Inside, the wrappers count nothing and list each call as (instance,
+    shape): a CUDA graph's capture (``turbo.decode``) launches nothing, and
+    each replay launches what the list says."""
+    global _captured
+    saved, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = saved
+
+
+def count_replayed(calls: list) -> None:
+    """Count the launches of one replay of a graph whose capture listed
+    `calls` (``capturing``): a replay does not call the wrappers."""
+    for name, shape in calls:
+        _count(name, shape)
+
+
 # ------------------------------------------------------------ [n, lw] half
 def _half_cuda(kernel, lin, par, a0, b0):
     """Launch one instance on the current stream; raises on any CUDA error."""
@@ -217,8 +249,7 @@ def _half_cuda(kernel, lin, par, a0, b0):
     if rc != 0:
         raise RuntimeError(f"bcjr_half_{kernel} kernel launch failed: CUDA error {rc} "
                            f"(n={n}, lw={lw})")
-    launches[kernel] += 1
-    shapes[kernel].add((n, lw))
+    _count(kernel, (n, lw))
     return ext, alast, bfirst
 
 
@@ -235,8 +266,7 @@ def half_windowed(lin, par, a0, b0, kernel: str = "r2max"):
 
 
 # ---------------------------------------------------------------- [B, K] half
-def _windowed(half, sys_llr, par_llr, apriori, tail_sys, tail_par,
-              alpha_b, beta_b, lw):
+def _windowed(half, sys_llr, par_llr, apriori, tail_b, alpha_b, beta_b, lw):
     B, K = sys_llr.shape
     if K % lw:
         raise ValueError(f"window {lw} must divide K={K}")
@@ -246,7 +276,7 @@ def _windowed(half, sys_llr, par_llr, apriori, tail_sys, tail_par,
     a0[:, 0] = turbo.NEG
     a0[:, 0, 0] = 0.0  # the trellis starts in state 0
     b0 = beta_b.clone()
-    b0[:, W - 1] = turbo.tail_beta(tail_sys, tail_par)
+    b0[:, W - 1] = tail_b
     ext, alast, bfirst = half(lin, par_llr.reshape(B * W, lw).contiguous(),
                               a0.reshape(B * W, 8), b0.reshape(B * W, 8))
     alast = alast.reshape(B, W, 8)
@@ -264,15 +294,25 @@ def bcjr_half_windowed(sys_llr, par_llr, apriori, tail_sys, tail_par,
     sys_llr, par_llr, apriori [B, K]; tail_sys, tail_par [B, 3];
     alpha_b, beta_b [B, W, 8] boundaries from the previous iteration.
     Returns (extrinsic [B, K], new alpha_b, new beta_b)."""
+    return bcjr_half_windowed_tb(sys_llr, par_llr, apriori, turbo.tail_beta(tail_sys, tail_par),
+                                 alpha_b, beta_b, lw, kernel)
+
+
+def bcjr_half_windowed_tb(sys_llr, par_llr, apriori, tail_b, alpha_b, beta_b, lw: int,
+                          kernel: str = "r2max"):
+    """``bcjr_half_windowed`` with the tail beta [B, 8] given
+    (``turbo.tail_beta`` of the tail LLRs), as a decode computes it once for
+    all its iterations."""
     return _windowed(functools.partial(half_windowed, kernel=kernel), sys_llr, par_llr,
-                     apriori, tail_sys, tail_par, alpha_b, beta_b, lw)
+                     apriori, tail_b, alpha_b, beta_b, lw)
 
 
 def bcjr_half_windowed_plain(sys_llr, par_llr, apriori, tail_sys, tail_par,
                              alpha_b, beta_b, lw: int, kernel: str = "r2max"):
     """The plain PyTorch version of ``bcjr_half_windowed`` on any device."""
     return _windowed(functools.partial(half_windowed_plain, kernel=kernel), sys_llr,
-                     par_llr, apriori, tail_sys, tail_par, alpha_b, beta_b, lw)
+                     par_llr, apriori, turbo.tail_beta(tail_sys, tail_par), alpha_b, beta_b,
+                     lw)
 
 
 # ----------------------------------------------------------------- fused half
@@ -321,8 +361,7 @@ def _fused_cuda(sys_h, par_h, ext_other, idx, alast, bfirst, tail_b, lw):
     if rc != 0:
         raise RuntimeError(f"bcjr_half_fused kernel launch failed: CUDA error {rc} "
                            f"(B={B}, K={K}, lw={lw})")
-    launches["fused"] += 1
-    shapes["fused"].add((B * (K // lw), lw))
+    _count("fused", (B * (K // lw), lw))
     return ext, al, bf
 
 

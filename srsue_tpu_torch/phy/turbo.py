@@ -2,14 +2,16 @@
 
 Counterpart of ``srsue_tpu/phy/turbo.py``. The host side (QPP and trellis
 tables, and the encoder, vectorised over the block, of the UE's uplink and
-of the test vectors) is carried over as numpy; the decoder is the batched max-log-MAP iteration loop in torch
-around the windowed BCJR half-iteration of ``kernels/bcjr.py``.
+of the test vectors) is carried over as numpy; the decoder is the batched
+max-log-MAP iteration loop in torch around the windowed BCJR half-iteration
+of ``kernels/bcjr.py``, replayed as CUDA graphs on a card.
 
 LLR convention: positive = bit 0.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -272,14 +274,19 @@ def _streams(d_llrs: torch.Tensor, k: int):
     return sys1, par1, par2, tails
 
 
+def _window(k: int, window: int | None) -> int:
+    lw = window or pick_window(k) or k
+    if k % lw:
+        raise ValueError(f"window {lw} must divide K={k}")
+    return lw
+
+
 def _prepare(d_llrs: torch.Tensor, k: int, kernel: str, window: int | None):
     """Window length and the LLRs the decoder works on. The bfloat16 kernel
     (v5) gets them rescaled to an RMS of 32, as ``turbo_pallas.decode``
     does: max-log BCJR is scale-invariant, so decisions do not change, and
     bf16's 8-bit mantissa then quantises at ~0.4% of a working LLR."""
-    lw = window or pick_window(k) or k
-    if k % lw:
-        raise ValueError(f"window {lw} must divide K={k}")
+    lw = _window(k, window)
     if kernel == "v5":
         rms = torch.sqrt(torch.mean(torch.square(d_llrs.to(torch.float32))) + 1e-9)
         d_llrs = d_llrs * (32.0 / rms)
@@ -299,6 +306,210 @@ def _ok_of(hard: torch.Tensor, crc_m: torch.Tensor | None) -> torch.Tensor:
     return crc_ok(hard, crc_m)
 
 
+class _Loop:
+    """The masked loop of ``decode`` at one input shape. ``prep`` makes its
+    state from the softbuffers: the streams, the two tail betas (the tail
+    LLRs do not change in a decode, so they are computed once, as
+    ``decode_forced`` does) and the zeroed flags, decisions and window
+    boundaries. ``iterate`` runs one masked iteration and writes every
+    update into that state in place, so that a CUDA graph of it replays
+    iteration i + 1 on what replay i left. The same two methods run eagerly
+    and under capture (``_Graphed``)."""
+
+    def __init__(self, k: int, lw: int, kernel: str, device: torch.device):
+        self.k, self.lw, self.kernel = k, lw, kernel
+        self.perm, self.inv = qpp_tensors(k, device)
+
+    def prep(self, d_llrs: torch.Tensor, crc_m: torch.Tensor | None) -> None:
+        k, B, dev = self.k, d_llrs.shape[0], d_llrs.device
+        _, d_llrs = _prepare(d_llrs, k, self.kernel, self.lw)
+        self.sys1, self.par1, self.par2, (t1s, t1p, t2s, t2p) = _streams(d_llrs, k)
+        self.sys2 = self.sys1[:, self.perm]
+        self.bt1, self.bt2 = tail_beta(t1s, t1p), tail_beta(t2s, t2p)
+        self.crc = crc_m
+        self.le21 = torch.zeros(B, k, device=dev)
+        self.done = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.hard = torch.zeros(B, k, dtype=torch.uint8, device=dev)
+        self.bounds = [torch.zeros(B, k // self.lw, 8, device=dev) for _ in range(4)]
+
+    def iterate(self) -> None:
+        from ..kernels.bcjr import bcjr_half_windowed_tb as half
+
+        ab1, bb1, ab2, bb2 = self.bounds
+        le12, ab1n, bb1n = half(self.sys1, self.par1, self.le21, self.bt1, ab1, bb1, self.lw,
+                                self.kernel)
+        le21_raw, ab2n, bb2n = half(self.sys2, self.par2, le12[:, self.perm], self.bt2, ab2,
+                                    bb2, self.lw, self.kernel)
+        le21_new = le21_raw[:, self.inv]
+        hard_new = (self.sys1 + le12 + le21_new < 0).to(torch.uint8)
+        ok = _ok_of(hard_new, self.crc)
+        m = self.done[:, None]
+        m3 = self.done[:, None, None]
+        torch.where(m, self.le21, le21_new, out=self.le21)
+        torch.where(m, self.hard, hard_new, out=self.hard)
+        for old, new in zip(self.bounds, (ab1n, bb1n, ab2n, bb2n)):
+            torch.where(m3, old, new, out=old)
+        self.iters += (~self.done).to(torch.int32)
+        self.done |= ok
+
+
+def _capture(graph, pool, stream, body) -> list:
+    """Capture `body` into `graph` on `stream`, its memory from `pool`;
+    returns the half-iteration launches it made (``bcjr.capturing``), which
+    each replay makes again. ``torch.cuda.graph`` would first synchronise
+    the device and empty the allocator's cache, which a capture does not
+    need: every allocation after it would go back to ``cudaMalloc``.
+    thread_local: another thread's CUDA calls (NCCL's watchdog) do not
+    break the capture."""
+    from ..kernels import bcjr
+
+    with torch.cuda.stream(stream), bcjr.capturing() as calls:
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            body()
+        finally:
+            graph.capture_end()
+    return calls
+
+
+class _Graphed:
+    """A ``_Loop`` captured as two CUDA graphs at one input shape: ``prep``
+    copies the softbuffers and the CRC matrix into static inputs and replays
+    the prep graph; ``iterate`` replays one iteration. Nothing in either
+    body synchronises with the host. The kernels' counters grow at each
+    replay by the launches its capture listed; ``bytes`` is the device
+    memory the shape's static inputs and state hold."""
+
+    def __init__(self, d_llrs, crc_m, k: int, lw: int, kernel: str, pool, stream):
+        from ..kernels import build
+
+        dev = self.device = d_llrs.device
+        build.load()
+        trellis_tensors(dev)  # cached before capture: a miss would copy from the host
+        before = torch.cuda.memory_allocated(dev)
+        self.d_in = torch.empty(d_llrs.shape, dtype=d_llrs.dtype, device=dev)
+        self.crc = None if crc_m is None else torch.empty_like(crc_m)
+        self.loop = _Loop(k, lw, kernel, dev)
+        self.prep_g, self.iter_g = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with annotate("turbo.graph_capture"), torch.cuda.device(dev):
+            self.prep_calls = _capture(self.prep_g, pool, stream,
+                                       lambda: self.loop.prep(self.d_in, self.crc))
+            self.iter_calls = _capture(self.iter_g, pool, stream, self.loop.iterate)
+        self.bytes = torch.cuda.memory_allocated(dev) - before
+
+    def prep(self, d_llrs: torch.Tensor, crc_m: torch.Tensor | None) -> None:
+        from ..kernels import bcjr
+
+        self.d_in.copy_(d_llrs)
+        if crc_m is not None:
+            self.crc.copy_(crc_m)
+        self.prep_g.replay()
+        bcjr.count_replayed(self.prep_calls)
+
+    def iterate(self) -> None:
+        from ..kernels import bcjr
+
+        self.iter_g.replay()
+        bcjr.count_replayed(self.iter_calls)
+
+
+def _memory(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def _new_pool(dev: torch.device):
+    """A private graph memory pool on `dev`."""
+    with torch.cuda.device(dev):
+        return torch.cuda.graph_pool_handle()
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(dev: torch.device):
+    """The one side stream of `dev` that every capture runs on: cuBLAS
+    keeps a workspace for each stream it ran on, so one stream keeps one."""
+    return torch.cuda.Stream(dev)
+
+
+class _GraphCache:
+    """The last ``SIZE`` input shapes ``decode`` saw on a card, with the
+    captured loops of those that recurred. The graphs help only a caller
+    whose input shape repeats: a UE whose grant (PRB count and MCS, so the
+    K-groups' block counts and sizes) stays the same from TTI to TTI, or a
+    batch of a fixed shape. A key is everything the captured work depends
+    on: the device, the input's shape and dtype, K, the window, the kernel
+    and the CRC matrix's shape (None without one); ``n_iters`` and
+    ``early_exit`` only steer the replays.
+
+    One LRU of keys: a call whose key holds graphs replays them; a call
+    whose key is held without them captures them (its shape came back
+    within the last ``SIZE`` shapes, so at that distance its graphs stay
+    held until they are used again); any other call runs eagerly and enters
+    its key, dropping the least recently used. So a shape seen once, or
+    coming back only after more than ``SIZE`` others, never pays a
+    capture. The graphs of a device hold at most ``1 / SHARE`` of its
+    memory: past that, the least recently used shapes holding graphs are
+    dropped. On seeded grant sequences at B=1 (``bench_turbo_graph``;
+    PERF.md) a capture costs two to four eager calls and a replay an
+    eighth of one, and a smaller ``SIZE`` was never faster: where every
+    grant is drawn anew (238 shapes in 2,000 TTIs) a ``SIZE`` of 4 to 64
+    made decoding up to 35% slower than the eager path and never more than
+    4% faster, by captures whose graphs were dropped before their shape
+    came back, and 256 made it 37-45% faster. So ``SIZE`` holds every
+    shape a 20 MHz UE decodes, and memory, not a count, bounds the graphs:
+    a shape at B=1 holds at most a few MB, the largest shape the port
+    decodes (B=256 x 13 blocks of K=5824) 0.65 GB, so about seven of those
+    fit a sixteenth of an 80 GB card. The first capture on a device also
+    holds cuBLAS's workspace for the capture stream (32 MB).
+
+    Memory: every graph of a device captures into one private pool on one
+    side stream of that device, so the pool holds each cached shape's state
+    and one shape's scratch, not a scratch a shape. Sharing is safe because
+    decodes run one at a time in stream order, each call's prep replay
+    rewrites every tensor of the pool that its iteration graph reads, and
+    the results are cloned out before the call returns: another shape's
+    graph may reuse this one's scratch and dead state between two calls,
+    never within one. The static inputs and the clones are outside the pool.
+    Once every graph of a pool has been dropped the allocator refuses
+    further captures into it, so the next capture takes a fresh pool.
+    """
+
+    SIZE = 256
+    SHARE = 16
+
+    def __init__(self):
+        self.keys: collections.OrderedDict = collections.OrderedDict()  # key -> _Graphed | None
+        self.pools: dict = {}  # device -> graph pool
+
+    def get(self, key, d_llrs, crc_m, k: int, lw: int, kernel: str):
+        """The captured loop of `key`, captured now if the key is held
+        without one; None (run eagerly) if the key is not held."""
+        if key not in self.keys:
+            self.keys[key] = None
+            if len(self.keys) > self.SIZE:
+                self.keys.popitem(last=False)
+            return None
+        self.keys.move_to_end(key)
+        if self.keys[key] is None:
+            dev = d_llrs.device
+            if not self._holding(dev):
+                self.pools[dev] = _new_pool(dev)
+            self.keys[key] = _Graphed(d_llrs, crc_m, k, lw, kernel, self.pools[dev],
+                                      _capture_stream(dev))
+            held = self._holding(dev)
+            while (sum(self.keys[h].bytes for h in held) > _memory(dev) // self.SHARE
+                   and held[0] != key):
+                del self.keys[held.pop(0)]
+        return self.keys[key]
+
+    def _holding(self, dev) -> list:
+        """The keys holding graphs on `dev`, least recently used first."""
+        return [h for h, g in self.keys.items() if g is not None and g.device == dev]
+
+
+_GRAPHS = _GraphCache()
+
+
 def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
            crc_mat: np.ndarray | torch.Tensor | None = None,
            early_exit: bool = True, kernel: str = "r2max", window: int | None = None):
@@ -312,54 +523,50 @@ def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
     are frozen by masks, so iterations after convergence change nothing,
     and ``iters`` counts each block's iterations up to its convergence.
     ``early_exit`` stops the loop once every block has passed, at the cost
-    of one host synchronisation per iteration; without it all ``n_iters``
-    masked iterations run with no synchronisation. Both give the same
-    results. ``kernel`` is the half-iteration instance
+    of one host synchronisation after each iteration but the last; without
+    it all ``n_iters`` masked iterations run with no synchronisation. Both
+    give the same results. ``kernel`` is the half-iteration instance
     (``kernels.bcjr.KERNELS``); ``window`` the window length, by default
     ``pick_window(k)``, and blocks with no window run as one window of
     length K.
-    """
-    from ..kernels.bcjr import bcjr_half_windowed
 
+    On a card, an input shape that comes back among the last few shapes
+    decoded has its loop captured and then replayed as CUDA graphs
+    (``_GraphCache``): the same work, the same results bit for bit, without
+    the host dispatching each of its operations.
+    """
     dev = d_llrs.device
-    B = d_llrs.shape[0]
-    lw, d_llrs = _prepare(d_llrs, k, kernel, window)
-    W = k // lw
-    perm, inv = qpp_tensors(k, dev)
-    sys1, par1, par2, (t1s, t1p, t2s, t2p) = _streams(d_llrs, k)
-    sys2 = sys1[:, perm]
+    lw = _window(k, window)
     crc_m = _crc_of(crc_mat, dev)
-    le21 = torch.zeros(B, k, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    hard = torch.zeros(B, k, dtype=torch.uint8, device=dev)
-    ab1, bb1, ab2, bb2 = (torch.zeros(B, W, 8, device=dev) for _ in range(4))
+    graphed = None
+    if dev.type == "cuda" and n_iters > 0:
+        key = (dev, tuple(d_llrs.shape), d_llrs.dtype, k, lw, kernel,
+               None if crc_m is None else tuple(crc_m.shape))
+        graphed = _GRAPHS.get(key, d_llrs, crc_m, k, lw, kernel)
+    if graphed is None:
+        loop = _Loop(k, lw, kernel, dev)
+        loop.prep(d_llrs, crc_m)
+        step = loop.iterate
+    else:
+        loop = graphed.loop
+        graphed.prep(d_llrs, crc_m)
+        step = graphed.iterate
     stop_early = early_exit and crc_m is not None
-    for _ in range(n_iters):
-        if stop_early:
+    for i in range(n_iters):
+        if stop_early and i:  # done starts all False: nothing to check before the first
             with annotate("turbo.exit_check"):
-                stop = bool(done.all())
+                stop = bool(loop.done.all())
             if stop:
                 break
         with annotate("turbo.iteration"):
-            le12, ab1n, bb1n = bcjr_half_windowed(
-                sys1, par1, le21, t1s, t1p, ab1, bb1, lw, kernel)
-            le21_raw, ab2n, bb2n = bcjr_half_windowed(
-                sys2, par2, le12[:, perm], t2s, t2p, ab2, bb2, lw, kernel)
-            le21_new = le21_raw[:, inv]
-            hard_new = (sys1 + le12 + le21_new < 0).to(torch.uint8)
-            ok = _ok_of(hard_new, crc_m)
-            m = done[:, None]
-            m3 = done[:, None, None]
-            le21 = torch.where(m, le21, le21_new)
-            hard = torch.where(m, hard, hard_new)
-            ab1 = torch.where(m3, ab1, ab1n)
-            bb1 = torch.where(m3, bb1, bb1n)
-            ab2 = torch.where(m3, ab2, ab2n)
-            bb2 = torch.where(m3, bb2, bb2n)
-            iters += (~done).to(torch.int32)
-            done = done | ok
-    return hard, iters, _ok_of(hard, crc_m) | done
+            step()
+    if graphed is None:
+        return loop.hard, loop.iters, _ok_of(loop.hard, crc_m) | loop.done
+    # After an iteration, _ok_of(hard) | done is done: a block that was not
+    # done holds the last iteration's decision, whose CRC flag that
+    # iteration or-ed into done. Cloned: the next decode at this shape
+    # rewrites the static state.
+    return loop.hard.clone(), loop.iters.clone(), loop.done.clone()
 
 
 def decode_forced(d_llrs: torch.Tensor, k: int, n_iters: int = 8,

@@ -6,8 +6,8 @@ the clock of the device trace: ``torch.profiler.record_function`` while a
 profiler records, and otherwise one shared no-op context, which adds no
 sync, no CUDA event and no allocation. Spans live in the profiler's memory
 and go out with its trace. ``SPANS`` names every span the receive path
-records; ``turbo.exit_check`` is also its one counter (a span counted per
-step).
+records; ``turbo.exit_check`` and ``turbo.graph_capture`` are also counters
+(spans counted per step).
 
 ``ProfilerTrace`` stands in for the reference's ``XlaTrace`` (jax.profiler)
 with the same contract: ``logdir``, ``active``, an ``errors`` list, and a
@@ -39,6 +39,7 @@ SPANS = (
     "pdsch.turbo",           # the turbo driver over every K-group
     "turbo.iteration",       # one pass of a turbo loop
     "turbo.exit_check",      # counter: the early exit's host sync
+    "turbo.graph_capture",   # counter: a shape's capture of the masked loop as CUDA graphs
     "pdsch.tb_crc",          # the TB CRC
     "shard.exchange",        # shard_decode's all_reduce through its check on the host
 )

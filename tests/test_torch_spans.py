@@ -1,7 +1,7 @@
 """The port's spans (``utils/trace.py``'s ``annotate`` and ``SPANS``) on the
 CPU: the span tree of ``UeDl.process`` on 6 PRB TM1 and TM2 subframes from
-the port's own transmitter, the turbo loops' iteration and exit-check
-counts, the shared no-op with no profiler running, ``shard_decode``'s
+the port's own transmitter (on the card too, with the turbo loop's capture as
+CUDA graphs), the turbo loops' iteration and exit-check counts, the shared no-op with no profiler running, ``shard_decode``'s
 exchange on each of two gloo ranks, and results that do not change while
 spans record. Imports no JAX: the spawned ranks import this module."""
 
@@ -96,8 +96,8 @@ def _process(tm: str, iq: torch.Tensor):
 @pytest.mark.parametrize("tm", ["tm1", "tm2"])
 def test_process_span_tree(tm, tmp_path):
     """Every stage of one call under its root, the control layer's three
-    children inside ``ue_dl.control``; one exit check per iteration run and
-    one more where the loop stopped early."""
+    children inside ``ue_dl.control``; one exit check after each iteration
+    but the last (the one that passes where the loop stopped early)."""
     res, events = _recorded(lambda: _process(tm, _iq(tm)), tmp_path)
     assert res.tb_ok is not None and res.tb_ok.all()
     names = [e["name"] for e in events]
@@ -113,7 +113,7 @@ def test_process_span_tree(tm, tmp_path):
     runs = [int(res.turbo_iters[:, first:first + count].max())
             for _, first, count, *_ in codec.groups]
     assert names.count("turbo.iteration") == sum(runs)
-    assert names.count("turbo.exit_check") == sum(r + 1 if r < n else n for r in runs)
+    assert names.count("turbo.exit_check") == sum(min(r, n - 1) for r in runs)
 
 
 @pytest.mark.parametrize("tm", ["tm1", "tm2"])
@@ -129,6 +129,35 @@ def test_results_unchanged_while_spans_record(tm, tmp_path):
     assert plain.hits_per_elem == rec.hits_per_elem
     for k in plain.metrics:
         np.testing.assert_array_equal(plain.metrics[k], rec.metrics[k])
+
+
+@pytest.mark.cuda
+def test_graph_capture_inside_pdsch_turbo(tmp_path, monkeypatch):
+    """On the card the second call at a shape captures the turbo loop, one
+    ``turbo.graph_capture`` span a K-group inside ``pdsch.turbo``; the third
+    replays and records none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    monkeypatch.setattr(turbo, "_GRAPHS", turbo._GraphCache())
+    iq = _iq("tm1").cuda()
+    ue = UeDl(_cell("tm1"), n_turbo_iters=CFG["turbo_iters"], device="cuda")
+    run = lambda: ue.process(iq, CFG["subframe"], CFG["rnti"])  # noqa: E731
+    first = run()
+    second, events = _recorded(run, tmp_path / "second")
+    third, later = _recorded(run, tmp_path / "third")
+    caps = [e for e in events if e["name"] == "turbo.graph_capture"]
+    n_groups = len(pdsch.codec(_cell("tm1"), first.grants[0], CFG["rnti"], CFG["subframe"],
+                               first.cfi, CFG["turbo_iters"], "cpu").groups)
+    assert len(caps) == n_groups
+    assert all(_parent(e, events) == "pdsch.turbo" for e in caps)
+    assert "turbo.graph_capture" not in [e["name"] for e in later]
+    for res in (second, third):
+        np.testing.assert_array_equal(res.payload, first.payload)
+        np.testing.assert_array_equal(res.turbo_iters, first.turbo_iters)
+
+
+def test_graph_capture_is_a_span():
+    assert "turbo.graph_capture" in trace.SPANS
 
 
 @pytest.mark.parametrize("form", ["forced", "masked"])
