@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve, to_host
+from ..utils.trace import annotate
 from . import modulation, ofdm, ratematch, segmentation, seq, turbo, uci
 from .cell import Cell, UlGrant
 from .pdsch import FILLER_LLR, blk_crc_matrix
@@ -231,15 +232,17 @@ class PuschCodec:
         if not isinstance(iq, torch.Tensor):
             iq = torch.as_tensor(np.asarray(iq, np.complex64), device=self.device)
         sc0 = self.grant.prb_start * 12
-        region = ofdm.demodulate(cell, iq)[..., sc0:sc0 + m_sc]
-        ref = self._dmrs_conj(cyclic_shift)
-        h = (region[..., N_DMRS_SYM[0], :] * ref[0] + region[..., N_DMRS_SYM[1], :] * ref[1]) / 2.0
-        y = region[..., self._data_sym, :]  # [..., 12, m_sc]
-        h2 = torch.clamp_min(torch.abs(h) ** 2, 1e-12)[..., None, :]
-        x_td = torch.fft.ifft(y * torch.conj(h)[..., None, :] / h2, dim=-1) * math.sqrt(m_sc)
-        syms = x_td.reshape(x_td.shape[:-2] + (-1,))
-        # the reference's quirk: subcarrier k's noise on time-domain sample k
-        return syms, (noise_var / h2).expand(y.shape).reshape(syms.shape)
+        with annotate("pusch.frontend"):
+            region = ofdm.demodulate(cell, iq)[..., sc0:sc0 + m_sc]
+            ref = self._dmrs_conj(cyclic_shift)
+            h = (region[..., N_DMRS_SYM[0], :] * ref[0]
+                 + region[..., N_DMRS_SYM[1], :] * ref[1]) / 2.0
+            y = region[..., self._data_sym, :]  # [..., 12, m_sc]
+            h2 = torch.clamp_min(torch.abs(h) ** 2, 1e-12)[..., None, :]
+            x_td = torch.fft.ifft(y * torch.conj(h)[..., None, :] / h2, dim=-1) * math.sqrt(m_sc)
+            syms = x_td.reshape(x_td.shape[:-2] + (-1,))
+            # the reference's quirk: subcarrier k's noise on time-domain sample k
+            return syms, (noise_var / h2).expand(y.shape).reshape(syms.shape)
 
     def _uci_llrs(self, syms: torch.Tensor, nv: torch.Tensor, pos: torch.Tensor):
         """[..., len(pos), qm] LLRs of the symbols at stream positions pos."""
@@ -255,22 +258,23 @@ class PuschCodec:
         not depend on rv, so element-wise addition across retransmissions
         (each dematched by the codec of its rv) is the eNB's HARQ combining.
         The UCI symbols' LLRs (``modulation.demodulate_soft``) are kept for
-        ``decode_uci``."""
+        ``decode_uci`` and ``decode_uci_sf``."""
         syms, nv = self.equalize_sf(iq, noise_var, cyclic_shift)
         lead = syms.shape[:-1]
-        self._last_uci_llrs = (
-            self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
-            self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
-        bufs = []
-        for (k, first, count, lo, hi, _), inv32, ranges in zip(self.groups, self._inv32,
-                                                                self._ranges):
-            buf = ratematch.demap_dematch(syms, nv, self.qm, self._scr_erase, inv32,
-                                          self._data_pos, lo, hi, ranges).reshape(
-                lead + (count, 3 * (k + 4)))
-            if first == 0 and self.plan.f:
-                buf[..., 0, :self.plan.f] += FILLER_LLR
-            bufs.extend(buf.unbind(-2))
-        return bufs
+        with annotate("pusch.demap_dematch"):
+            self._last_uci_llrs = (
+                self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
+                self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
+            bufs = []
+            for (k, first, count, lo, hi, _), inv32, ranges in zip(self.groups, self._inv32,
+                                                                    self._ranges):
+                buf = ratematch.demap_dematch(syms, nv, self.qm, self._scr_erase, inv32,
+                                              self._data_pos, lo, hi, ranges).reshape(
+                    lead + (count, 3 * (k + 4)))
+                if first == 0 and self.plan.f:
+                    buf[..., 0, :self.plan.f] += FILLER_LLR
+                bufs.extend(buf.unbind(-2))
+            return bufs
 
     def decode_softbuffers(self, bufs: list):
         """Per-block softbuffers -> (payload [..., tbs] uint8, tb_ok [...] bool,
@@ -280,34 +284,53 @@ class PuschCodec:
         CRC, as in the reference (the TB CRC24A is the block CRC when C = 1
         and is not checked again when C > 1)."""
         hards, oks, iters = [], [], []
-        for k, first, count, *_ in self.groups:
-            buf = torch.stack(bufs[first:first + count], -2)
-            lead = buf.shape[:-2]
-            hard, it, ok = turbo.decode(buf.reshape(-1, 3, k + 4), k, self.n_turbo_iters,
-                                        self._blk_crc[k])
-            hards.append(hard.reshape(lead + (count * k,)))
-            oks.append(ok.reshape(lead + (count,)))
-            iters.append(it.reshape(lead + (count,)))
-        blk_ok = torch.cat(oks, -1)
-        return torch.cat(hards, -1)[..., self._tb_pos], blk_ok.all(-1), torch.cat(iters, -1)
+        with annotate("pusch.turbo"):
+            for k, first, count, *_ in self.groups:
+                buf = torch.stack(bufs[first:first + count], -2)
+                lead = buf.shape[:-2]
+                hard, it, ok = turbo.decode(buf.reshape(-1, 3, k + 4), k, self.n_turbo_iters,
+                                            self._blk_crc[k])
+                hards.append(hard.reshape(lead + (count * k,)))
+                oks.append(ok.reshape(lead + (count,)))
+                iters.append(it.reshape(lead + (count,)))
+            blk_ok = torch.cat(oks, -1)
+            return torch.cat(hards, -1)[..., self._tb_pos], blk_ok.all(-1), torch.cat(iters, -1)
 
     def decode_sf(self, iq, noise_var: float = 1e-4, cyclic_shift: int = 0):
         """IQ [..., sf_len] -> (payload, tb_ok, iters): ``dematch_sf`` then
         ``decode_softbuffers``."""
         return self.decode_softbuffers(self.dematch_sf(iq, noise_var, cyclic_shift))
 
-    def decode_uci(self):
-        """The UCI of the last ``dematch_sf`` call: (cqi_bits | None, ack |
-        None). As in the reference, every CQI LLR of the call (all batch
-        elements, in order) accumulates into the 20 RM positions on the host,
-        and the ACK is the sign of the sum of its LLRs."""
+    def _uci(self, whole: bool):
+        """The last ``dematch_sf``'s (cqi [..., A] uint8 | None, ack [...]
+        bool | None) on the codec's device, of each subframe, or of the whole
+        call as one stream (`whole`): the CQI's LLRs summed into the 20 RM
+        positions in their order (``uci.rm20_sums``), then the ML codeword
+        (``uci.rm20_decode_t``); the ACK where the sum of its LLRs is
+        positive."""
+        def words(llr):  # [..., n_pos, qm] -> [..., n_pos * qm], or [all] if whole
+            return llr.reshape(-1) if whole else llr.flatten(-2)
+
         cqi_llr, ack_llr = self._last_uci_llrs
-        cqi = ack = None
-        if cqi_llr is not None:
-            acc = np.zeros(20, np.float32)
-            for i, v in enumerate(to_host(cqi_llr).reshape(-1)):
-                acc[i % 20] += v
-            cqi, _ = uci.rm20_decode(acc, self.n_cqi_bits)
-        if ack_llr is not None:
-            ack = bool(to_host(ack_llr).sum() > 0)
-        return cqi, ack
+        with annotate("pusch.uci"):
+            cqi = None if cqi_llr is None else uci.rm20_decode_t(
+                uci.rm20_sums(words(cqi_llr)), self.n_cqi_bits)
+            ack = None if ack_llr is None else words(ack_llr).sum(-1) > 0
+            return cqi, ack
+
+    def decode_uci_sf(self):
+        """The UCI of each subframe of the last ``dematch_sf`` call, as
+        tensors on the codec's device: (cqi [..., A] uint8 | None, ack [...]
+        bool | None), None where the codec carries no such UCI. Each
+        subframe's CQI and ACK come from its own LLRs alone."""
+        return self._uci(whole=False)
+
+    def decode_uci(self):
+        """The UCI of the last ``dematch_sf`` call on the host: (cqi_bits
+        [A] | None, ack | None). As in the reference, every CQI LLR of the
+        call (all batch elements, in order) sums into the 20 RM positions as
+        one stream, and the ACK is the sign of the sum of all its LLRs: the
+        decoder of ``decode_uci_sf`` over the whole call, the same at B=1."""
+        cqi, ack = self._uci(whole=True)
+        return (None if cqi is None else to_host(cqi),
+                None if ack is None else bool(to_host(ack)))

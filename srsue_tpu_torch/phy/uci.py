@@ -4,7 +4,9 @@ format 2 carrier (36.211 5.4.2). The port's own numpy copy of
 ``modulation`` and ``seq``.
 
 The (20, A <= 13) code of 36.212 Table 5.2.3.3-1; decoding is one
-correlation against all 2^A codewords (ML; A <= 11 for CQI).
+correlation against all 2^A codewords (ML; A <= 11 for CQI): on the host
+(``rm20_decode``), or for a batch of words on their tensors' device
+(``rm20_sums`` then ``rm20_decode_t``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from . import modulation, seq as seqmod
 from .cell import Cell
@@ -63,6 +66,29 @@ def rm20_decode(llrs: np.ndarray, n_bits: int) -> tuple[np.ndarray, float]:
     scores = _codebook(n_bits) @ np.asarray(llrs, np.float32)
     w = int(np.argmax(scores))
     return ((w >> np.arange(n_bits)) & 1).astype(np.uint8), float(scores[w])
+
+
+def rm20_sums(llrs: torch.Tensor) -> torch.Tensor:
+    """[..., n] LLRs of a codeword repeated circularly -> [..., 20]: LLR i
+    added into position i mod 20, on the LLRs' device."""
+    x = torch.nn.functional.pad(llrs, (0, -llrs.shape[-1] % 20))
+    return x.reshape(llrs.shape[:-1] + (-1, 20)).sum(-2)
+
+
+@functools.lru_cache(maxsize=16)
+def _codebook_t(n_bits: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transposed codebook [20, 2^A] and the bit shifts [A] on `device`."""
+    return (torch.as_tensor(_codebook(n_bits).T.copy(), device=device),
+            torch.arange(n_bits, device=device))
+
+
+def rm20_decode_t(sums: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """[..., 20] summed LLRs -> [..., A] uint8 bits on their device: the
+    ML codeword, by one product with the +-1 codebook and its argmax (the
+    first on a tie, as ``rm20_decode``)."""
+    book_t, shifts = _codebook_t(n_bits, sums.device)
+    w = torch.argmax(sums.to(torch.float32) @ book_t, -1, keepdim=True)
+    return ((w >> shifts) & 1).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

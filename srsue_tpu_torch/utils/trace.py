@@ -42,6 +42,10 @@ SPANS = (
     "turbo.graph_capture",   # counter: a shape's capture of the masked loop as CUDA graphs
     "pdsch.tb_crc",          # the TB CRC
     "shard.exchange",        # shard_decode's all_reduce through its check on the host
+    "pusch.frontend",        # PuschCodec.equalize_sf: OFDM, DMRS estimate, ZF, the IDFT
+    "pusch.demap_dematch",   # the UCI symbols' LLRs and every K-group's demap kernel
+    "pusch.turbo",           # decode_softbuffers: each K-group's stack and turbo.decode
+    "pusch.uci",             # the CQI's and ACK's decode, per subframe or over the call
 )
 
 _NOOP = contextlib.nullcontext()

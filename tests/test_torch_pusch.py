@@ -235,3 +235,58 @@ def test_build_pusch_vectors_decode():
     pay, ok, _ = codec.decode_sf(torch.as_tensor(rx.add_noise(ul.rng, ul.td, ul.p_sig, 20.0)))
     assert ok.all()
     np.testing.assert_array_equal(pay.numpy(), ul.payloads)
+
+
+# per-subframe UCI: name -> (cell, mcs); 64QAM puts 42 CQI bits on 7 symbols,
+# so a batch's CQI streams do not start on a 20-bit boundary
+UCI_CASES = {
+    "6prb_qpsk": (Cell(n_prb=6, cell_id=17), 9),
+    "25prb_16qam": (Cell(n_prb=25, cell_id=301), 16),
+    "6prb_64qam": (Cell(n_prb=6, cell_id=5), 20),
+}
+UCI_SENT = [([1, 0, 1, 1], True), ([0, 1, 1, 0], False), ([1, 1, 0, 1], True)]
+
+
+def _uci_batch(name):
+    """Both codecs and three 12 dB subframes, each its own TB, CQI and ACK."""
+    cell, mcs = UCI_CASES[name]
+    grant = _grant(cell.n_prb, mcs)
+    ref, mine = _codecs(cell, grant, n_cqi_bits=4, with_ack=True)
+    rng = np.random.default_rng(mcs + 100)
+    noisy = np.concatenate([_noisy(rng, cell, mine.encode_sf_uci(
+        rng.integers(0, 2, grant.tbs).astype(np.uint8), cqi_bits=np.asarray(c, np.uint8),
+        ack=a), 12.0)[:1] for c, a in UCI_SENT])
+    return ref, mine, noisy
+
+
+@pytest.mark.parametrize("name", list(UCI_CASES))
+def test_uci_per_subframe_equals_the_reference_on_each_alone(name):
+    """``decode_uci_sf`` on a batch of three gives, for each subframe, what
+    the reference's ``decode_uci`` gives on that subframe alone: the CQI and
+    ACK that were sent, ACK and NACK mixed."""
+    ref, mine, noisy = _uci_batch(name)
+    mine.dematch_sf(torch.as_tensor(noisy))
+    cqi, ack = mine.decode_uci_sf()
+    assert cqi.dtype == torch.uint8 and cqi.shape == (3, 4)
+    assert ack.dtype == torch.bool and ack.shape == (3,)
+    for i in range(3):
+        ref.dematch_sf(jnp.asarray(noisy[i:i + 1]))
+        cqi_r, ack_r = ref.decode_uci()
+        np.testing.assert_array_equal(cqi[i].numpy(), cqi_r)
+        assert bool(ack[i]) is ack_r
+    assert cqi.tolist() == [c for c, _ in UCI_SENT] and ack.tolist() == [a for _, a in UCI_SENT]
+
+
+@pytest.mark.parametrize("name", list(UCI_CASES))
+def test_uci_per_subframe_at_b1_is_decode_uci(name):
+    """At B=1 the per-subframe decode and ``decode_uci`` are one decoder;
+    a codec without UCI gives None for both."""
+    _, mine, noisy = _uci_batch(name)
+    for i in range(3):
+        mine.dematch_sf(torch.as_tensor(noisy[i:i + 1]))
+        (cqi, ack), (cqi_h, ack_h) = mine.decode_uci_sf(), mine.decode_uci()
+        np.testing.assert_array_equal(cqi[0].numpy(), cqi_h)
+        assert cqi_h.dtype == np.uint8 and bool(ack[0]) is ack_h
+    bare = pusch.PuschCodec(mine.cell, mine.grant, RNTI, SUBFRAME, device="cpu")
+    bare.dematch_sf(torch.as_tensor(noisy[:1]))
+    assert bare.decode_uci_sf() == bare.decode_uci() == (None, None)

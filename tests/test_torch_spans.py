@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from srsue_tpu_torch.parallel import mesh
-from srsue_tpu_torch.phy import control, dci, enb_tx, pdsch, turbo
-from srsue_tpu_torch.phy.cell import Cell
+from srsue_tpu_torch.phy import control, dci, enb_tx, pdsch, pusch, turbo
+from srsue_tpu_torch.phy.cell import Cell, UlGrant
 from srsue_tpu_torch.phy.pdsch import PdschCodec
 from srsue_tpu_torch.phy.ra import dl_grant
 from srsue_tpu_torch.phy.ue_dl import UeDl
@@ -199,6 +199,55 @@ def test_every_span_of_the_package_is_in_spans():
                 used.add(node.args[0].value)
     assert len(set(trace.SPANS)) == len(trace.SPANS)
     assert used == set(trace.SPANS)
+
+
+# PuschCodec's spans on a 6 PRB 16QAM grant with CQI and ACK, and each one's
+# enclosing span
+PUSCH_PARENT = {"pusch.frontend": None, "pusch.demap_dematch": None, "pusch.turbo": None,
+                "turbo.iteration": "pusch.turbo", "turbo.exit_check": "pusch.turbo",
+                "pusch.uci": None}
+
+
+def _pusch_step():
+    """An eNB's step on two uplink subframes at 20 dB: dematch, decode, each
+    subframe's UCI."""
+    cell = Cell(n_prb=6, cell_id=42)
+    grant = UlGrant(n_prb=6, prb_start=0, mcs=20, mod_order=4, tbs=2600)
+    codec = pusch.PuschCodec(cell, grant, 0x1234, 2, n_cqi_bits=4, with_ack=True, device="cpu")
+    rng = np.random.default_rng(7)
+    wave = np.stack([codec.encode_sf_uci(rng.integers(0, 2, grant.tbs).astype(np.uint8),
+                                         cqi_bits=np.array([1, 0, 0, 1], np.uint8), ack=a)
+                     for a in (True, False)])
+    iq = torch.as_tensor(enb_tx.awgn(rng, wave, 20.0)[0])
+
+    def step():
+        payload, tb_ok, iters = codec.decode_softbuffers(codec.dematch_sf(iq))
+        return payload, tb_ok, iters, *codec.decode_uci_sf()
+    return step
+
+
+def test_pusch_span_tree(tmp_path):
+    """The uplink's four spans once each in a step, the turbo loop's inside
+    ``pusch.turbo``, and the step's results as without a profiler."""
+    step = _pusch_step()
+    plain = step()
+    rec, events = _recorded(step, tmp_path)
+    names = [e["name"] for e in events]
+    assert set(names) == set(PUSCH_PARENT) and set(names) <= set(trace.SPANS)
+    for e in events:
+        assert _parent(e, events) == PUSCH_PARENT[e["name"]], e["name"]
+    for name in ("pusch.frontend", "pusch.demap_dematch", "pusch.turbo", "pusch.uci"):
+        assert names.count(name) == 1, name
+    assert rec[1].all() and rec[4].tolist() == [True, False]
+    for a, b in zip(plain, rec, strict=True):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_pusch_spans_record_nothing_without_a_profiler(monkeypatch):
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: opened.append(name))
+    _pusch_step()()
+    assert opened == []
 
 
 def _exchange_rank(m, iq, logdir):
