@@ -1,5 +1,5 @@
-"""Times ``turbo.decode``'s CUDA graphs (``turbo._GraphCache``) on one CUDA
-GPU: what a shape's capture costs, and what the cache gives a UE whose
+"""Times ``turbo.decode``'s CUDA graphs (``utils.graphs.GraphCache``) on one
+CUDA GPU: what a shape's capture costs, and what the cache gives a UE whose
 grants change from TTI to TTI.
 
     python -m srsue_tpu_torch.bench_turbo_graph [seed] [ttis]
@@ -42,13 +42,14 @@ import torch
 
 from .phy import crc as crcmod
 from .phy import ra, segmentation, turbo
+from .utils import graphs
 
 SIZES = (4, 8, 16, 32, 64, 256)
 SNR_DB = 3.0
 PRB_BUCKETS = (4, 10, 25, 100)
 
 
-class _Tally(turbo._GraphCache):
+class _Tally(graphs.GraphCache):
     """The cache at `size` keys (None: no graphs), noting each call's key
     and outcome: replay, capture or eager."""
 
@@ -58,14 +59,14 @@ class _Tally(turbo._GraphCache):
         if size is not None:
             self.SIZE = size
 
-    def get(self, key, *args):
+    def get(self, key, dev, make):
         self.seen.add(key)
         if self.size is None:
             self.last = "eager"
             return None
         self.last = ("eager" if key not in self.keys else
                      "capture" if self.keys[key] is None else "replay")
-        return super().get(key, *args)
+        return super().get(key, dev, make)
 
     def held_mb(self) -> float:
         """The device memory the held graphs' inputs and state take."""
@@ -124,7 +125,7 @@ def _pct(xs, q: float) -> float:
 
 def run_sequence(calls, size: int | None) -> dict:
     """The calls [(K, d, crc)] through a fresh cache of `size`."""
-    tally = turbo._GRAPHS = _Tally(size)
+    tally = graphs.GRAPHS = _Tally(size)
     ms, outcomes = [], []
     for k, d, m in calls:
         ms.append(_timed(lambda: turbo.decode(d, k, 8, m)))
@@ -155,7 +156,7 @@ def shape_costs(rng, reps: int = 3) -> list[dict]:
         d1, m = _blocks(k, c, rng)
         d = d1.repeat(b, 1, 1)
         row = {"shape": f"B={b} x {c} x K={k}"}
-        turbo._GRAPHS = _Tally(None)
+        graphs.GRAPHS = _Tally(None)
         row["eager_ms"] = statistics.median(
             _timed(lambda: turbo.decode(d, k, 8, m)) for _ in range(5))
         got: dict = {}
@@ -163,14 +164,14 @@ def shape_costs(rng, reps: int = 3) -> list[dict]:
             for name, capture in (("capture", turbo._capture), ("ctx_capture", _ctx_capture)):
                 turbo._capture, saved = capture, turbo._capture
                 try:
-                    turbo._GRAPHS = _Tally(8)
+                    graphs.GRAPHS = _Tally(8)
                     turbo.decode(d, k, 8, m)  # eager: the key enters
                     before = torch.cuda.memory_reserved()
                     got.setdefault(f"{name}_ms", []).append(
                         _timed(lambda: turbo.decode(d, k, 8, m)))
                     got.setdefault(f"{name}_reserved_mb", []).append(
                         (torch.cuda.memory_reserved() - before) / 2**20)
-                    got.setdefault(f"{name}_held_mb", []).append(turbo._GRAPHS.held_mb())
+                    got.setdefault(f"{name}_held_mb", []).append(graphs.GRAPHS.held_mb())
                     got.setdefault(f"{name}_next_eager_ms", []).append(
                         _timed(lambda: turbo.decode(other_d, other_k, 8, other_m)))
                     got.setdefault(f"{name}_replay_ms", []).append(statistics.median(
@@ -182,7 +183,7 @@ def shape_costs(rng, reps: int = 3) -> list[dict]:
         row["ctx_capture_ms_each"] = [round(x, 3) for x in got["ctx_capture_ms"]]
         rows.append(row)
         del d
-        turbo._GRAPHS = _Tally(None)
+        graphs.GRAPHS = _Tally(None)
         torch.cuda.empty_cache()
     return rows
 
@@ -196,7 +197,7 @@ def main(seed: int = 1, ttis: int = 2000) -> int:
     build.load()
     rng = np.random.default_rng(seed)
     smi = torch.cuda.get_device_name()
-    saved = turbo._GRAPHS
+    saved = graphs.GRAPHS
     try:
         for row in shape_costs(rng):
             print(f"shape {smi}: " + ", ".join(
@@ -219,7 +220,7 @@ def main(seed: int = 1, ttis: int = 2000) -> int:
                           f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
                           for k, v in r.items()), flush=True)
     finally:
-        turbo._GRAPHS = saved
+        graphs.GRAPHS = saved
     return 0
 
 

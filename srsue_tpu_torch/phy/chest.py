@@ -103,9 +103,10 @@ def _pilot_filter(h_sym: torch.Tensor, noise_var: torch.Tensor, n_eff: float):
 
 
 @functools.lru_cache(maxsize=64)
-def _device_tables(cell: Cell, port: int, subframe: int, device: torch.device):
+def device_tables(cell: Cell, port: int, subframe: int, device: torch.device):
     """Pilot flat indices, conj(refs), mean |refs|^2 and the frequency and
-    time interpolation matrices on `device` (built once per configuration)."""
+    time interpolation matrices on `device` (built once per configuration;
+    a frontend's CUDA graph holds the ones it reads)."""
     pos = regrid.crs_positions(cell, port, subframe)
     refs = regrid.crs_values(cell, port, subframe)
     n_crs = len(regrid.crs_symbols(cell, port))
@@ -121,8 +122,8 @@ def _device_tables(cell: Cell, port: int, subframe: int, device: torch.device):
 
 def pilot_ls(cell: Cell, grid: torch.Tensor, subframe: int, port: int = 0):
     """LS estimates at the CRS pilots: [..., n_crs_sym, 2*n_prb]."""
-    flat_idx, ref_conj, ref_power, wf, _ = _device_tables(cell, port, subframe,
-                                                         grid.device)
+    flat_idx, ref_conj, ref_power, wf, _ = device_tables(cell, port, subframe,
+                                                        grid.device)
     flat = grid.reshape(grid.shape[:-2] + (-1,))
     h_ls = flat[..., flat_idx] * ref_conj / ref_power
     return h_ls.reshape(h_ls.shape[:-1] + (len(wf), 2 * cell.n_prb))
@@ -134,7 +135,7 @@ def estimate(cell: Cell, grid: torch.Tensor, subframe: int, port: int = 0):
     grid: [..., n_sym_sf, n_sc] complex64.
     Returns (h [..., n_sym_sf, n_sc] complex64, noise_var [...] float32,
     rsrp [...] float32)."""
-    _, _, _, wf, wt = _device_tables(cell, port, subframe, grid.device)
+    _, _, _, wf, wt = device_tables(cell, port, subframe, grid.device)
     n_crs = len(wf)
     h_sym = pilot_ls(cell, grid, subframe, port)
 

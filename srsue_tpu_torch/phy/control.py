@@ -270,6 +270,13 @@ def _control_region_idx(cell: Cell) -> np.ndarray:
                        for reg in regs_in_symbol(cell, l) for re in reg], dtype=np.int64)
 
 
+@functools.lru_cache(maxsize=64)
+def control_region_index(cell: Cell, device: torch.device) -> torch.Tensor:
+    """``_control_region_idx`` on `device`, built once (a frontend's CUDA
+    graph holds it: it reads no table from the host)."""
+    return torch.as_tensor(_control_region_idx(cell), device=device)
+
+
 def sfbc_equalize_control(cell: Cell, grid: torch.Tensor, h0: torch.Tensor,
                           h1: torch.Tensor, nvar):
     """Raw grid and the two ports' channel estimates -> a pseudo-equalized
@@ -279,7 +286,7 @@ def sfbc_equalize_control(cell: Cell, grid: torch.Tensor, h0: torch.Tensor,
     decoders (``pcfich_decode``, ``phich_decode``, ``pdcch_blind_*``) then
     run unchanged on the combined grid. The REG indices are unique, so the
     indexed assignments are deterministic."""
-    idx = torch.as_tensor(_control_region_idx(cell), device=grid.device)
+    idx = control_region_index(cell, grid.device)
     lead = grid.shape[:-2]
     n = cell.n_sym_sf * cell.n_sc
 

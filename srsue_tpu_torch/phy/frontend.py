@@ -1,0 +1,77 @@
+"""The receive frontends as CUDA graphs: ``UeDl._front_end`` (OFDM demod,
+the CRS estimate of each port, ZF or the SFBC control combining, the
+channel metrics) and ``pdsch.equalized`` (OFDM demod, port 0's CRS
+estimate, the PDSCH RE extract, ZF) are chains of 150-350 small operations,
+none of which reads a value back to the host, so at a small batch the
+host's dispatch of each sets their time. On a card ``run`` replays such a
+chain as one CUDA graph once its key comes back, by the rule of
+``utils.graphs.GraphCache`` (the turbo loop's); a key's first call runs
+eagerly, and the CPU never comes here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils import graphs
+from ..utils.trace import annotate
+
+
+def _clone(out):
+    """A copy of every tensor of a tuple, list or dict of tensors."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    return type(out)(_clone(v) for v in out)
+
+
+class _Replayed:
+    """`body` captured as one CUDA graph at one input shape and dtype.
+
+    A call copies its input into the static input, replays the graph and
+    returns clones of the outputs, so a result a caller holds never changes
+    under a later replay, whoever makes it. ``holds`` are the device tables
+    the body reads, kept as long as the graph: the caches they came from
+    may drop them, and a dropped table must not be freed under a live
+    graph. They are fetched just before the capture, so the capture finds
+    them cached and copies nothing from the host. (cuFFT's plans live in
+    torch's plan cache, which holds thousands; the port uses a handful of
+    sizes.) ``bytes``: the static input and the outputs the graph writes."""
+
+    def __init__(self, body, x: torch.Tensor, dev: torch.device, tables, pool, stream):
+        self.device = dev
+        self.holds = tables()
+        before = torch.cuda.memory_allocated(dev)
+        self.x = torch.empty(x.shape, dtype=x.dtype, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            self.out = body(self.x)
+
+        with annotate("frontend.graph_capture"), torch.cuda.device(dev):
+            graphs.capture(self.graph, pool, stream, capture)
+        self.bytes = torch.cuda.memory_allocated(dev) - before
+
+    def __call__(self, x: torch.Tensor):
+        with annotate("frontend.graph_replay"):
+            self.x.copy_(x)
+            self.graph.replay()
+            return _clone(self.out)
+
+
+def run(key: tuple, body, x: torch.Tensor, dev: torch.device, tables):
+    """``body`` of `x` on the card `dev`: eagerly at the key's first call,
+    then replayed as one CUDA graph (``_Replayed``).
+
+    key: everything ``body``'s launches depend on but `x`'s shape and dtype
+    (the cell, the subframe, the tables it reads), led by the body's name.
+    x: complex64 IQ on `dev`, or in host memory, whence a replay copies it
+    straight into the static input. tables: a function returning the device
+    tables ``body`` reads, called before a capture."""
+    full = key + (dev, tuple(x.shape), x.dtype)
+    replayed = graphs.GRAPHS.get(full, dev, lambda pool, stream: _Replayed(
+        body, x, dev, tables, pool, stream))
+    if replayed is None:
+        return body(x.to(dev))
+    return replayed(x)

@@ -11,14 +11,15 @@ and as tensors on its device for the receive path. HARQ soft-combining is
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve
 from ..utils.trace import annotate
-from . import (chest, crc, equalize, modulation, ofdm, ratematch, regrid, segmentation, seq,
-               turbo)
+from . import (chest, crc, equalize, frontend, modulation, ofdm, ratematch, regrid,
+               segmentation, seq, turbo)
 from .cell import Cell, DlGrant
 
 FILLER_LLR = 1e4  # known-zero filler bits: saturated "bit 0" prior
@@ -137,6 +138,12 @@ class PdschCodec:
                          for k, m in self.blk_crc.items()}
         self._tb_crc = torch.as_tensor(self.tb_crc, dtype=torch.float32, device=dev)
 
+    @functools.cached_property
+    def re_key(self) -> bytes:
+        """A digest of the RE map, which keys ``equalized``'s CUDA graphs:
+        codecs with equal maps extract the same REs."""
+        return hashlib.blake2b(self.re_idx.tobytes(), digest_size=16).digest()
+
     # ------------------------------------------------------------------ TX
     def encode(self, payload: np.ndarray) -> np.ndarray:
         """TB payload bits [tbs] -> scrambled codeword bits [G] (host)."""
@@ -253,9 +260,20 @@ def equalized(cell: Cell, codec: PdschCodec, subframe: int, iq: torch.Tensor):
     """The grant-known receive front end of iq [B, sf_len]: OFDM demod ->
     CRS channel estimate (port 0) -> PDSCH RE extract -> ZF. Returns
     (x_eq, nv_eff, nvar, rsrp); ``codec.decode(x_eq, nv_eff)`` finishes the
-    chain (``entry``, ``parallel.shard_decode``, ``bler.sweep_pdsch``)."""
+    chain (``entry``, ``parallel.shard_decode``, ``bler.sweep_pdsch``). On a
+    card the chain is replayed as one CUDA graph once this cell, subframe,
+    RE map and input shape come back (``frontend.run``)."""
     with annotate("pdsch.frontend"):
-        grid = ofdm.demodulate(cell, iq)
-        h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
-        x_eq, nv_eff = equalize.zf(codec.extract_re(grid), codec.extract_re(h), nvar)
-        return x_eq, nv_eff, nvar, rsrp
+        if iq.device.type != "cuda":
+            return _equalized(cell, codec, subframe, iq)
+        dev = iq.device
+        return frontend.run(("pdsch.equalized", cell, subframe, codec.re_key),
+                            lambda x: _equalized(cell, codec, subframe, x), iq, dev,
+                            lambda: [chest.device_tables(cell, 0, subframe, dev), codec._re_idx])
+
+
+def _equalized(cell: Cell, codec: PdschCodec, subframe: int, iq: torch.Tensor):
+    grid = ofdm.demodulate(cell, iq)
+    h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
+    x_eq, nv_eff = equalize.zf(codec.extract_re(grid), codec.extract_re(h), nvar)
+    return x_eq, nv_eff, nvar, rsrp

@@ -11,12 +11,12 @@ LLR convention: positive = bit 0.
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import numpy as np
 import torch
 
+from ..utils import graphs
 from ..utils.trace import annotate
 
 # --- QPP interleaver table: 36.212 Table 5.1.3-3 (K, f1, f2) ---------------
@@ -355,21 +355,12 @@ class _Loop:
 
 
 def _capture(graph, pool, stream, body) -> list:
-    """Capture `body` into `graph` on `stream`, its memory from `pool`;
-    returns the half-iteration launches it made (``bcjr.capturing``), which
-    each replay makes again. ``torch.cuda.graph`` would first synchronise
-    the device and empty the allocator's cache, which a capture does not
-    need: every allocation after it would go back to ``cudaMalloc``.
-    thread_local: another thread's CUDA calls (NCCL's watchdog) do not
-    break the capture."""
+    """Capture `body` (``graphs.capture``); returns the half-iteration
+    launches it made (``bcjr.capturing``), which each replay makes again."""
     from ..kernels import bcjr
 
-    with torch.cuda.stream(stream), bcjr.capturing() as calls:
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            body()
-        finally:
-            graph.capture_end()
+    with bcjr.capturing() as calls:
+        graphs.capture(graph, pool, stream, body)
     return calls
 
 
@@ -414,102 +405,6 @@ class _Graphed:
         bcjr.count_replayed(self.iter_calls)
 
 
-def _memory(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).total_memory
-
-
-def _new_pool(dev: torch.device):
-    """A private graph memory pool on `dev`."""
-    with torch.cuda.device(dev):
-        return torch.cuda.graph_pool_handle()
-
-
-@functools.lru_cache(maxsize=None)
-def _capture_stream(dev: torch.device):
-    """The one side stream of `dev` that every capture runs on: cuBLAS
-    keeps a workspace for each stream it ran on, so one stream keeps one."""
-    return torch.cuda.Stream(dev)
-
-
-class _GraphCache:
-    """The last ``SIZE`` input shapes ``decode`` saw on a card, with the
-    captured loops of those that recurred. The graphs help only a caller
-    whose input shape repeats: a UE whose grant (PRB count and MCS, so the
-    K-groups' block counts and sizes) stays the same from TTI to TTI, or a
-    batch of a fixed shape. A key is everything the captured work depends
-    on: the device, the input's shape and dtype, K, the window, the kernel
-    and the CRC matrix's shape (None without one); ``n_iters`` and
-    ``early_exit`` only steer the replays.
-
-    One LRU of keys: a call whose key holds graphs replays them; a call
-    whose key is held without them captures them (its shape came back
-    within the last ``SIZE`` shapes, so at that distance its graphs stay
-    held until they are used again); any other call runs eagerly and enters
-    its key, dropping the least recently used. So a shape seen once, or
-    coming back only after more than ``SIZE`` others, never pays a
-    capture. The graphs of a device hold at most ``1 / SHARE`` of its
-    memory: past that, the least recently used shapes holding graphs are
-    dropped. On seeded grant sequences at B=1 (``bench_turbo_graph``;
-    PERF.md) a capture costs two to four eager calls and a replay an
-    eighth of one, and a smaller ``SIZE`` was never faster: where every
-    grant is drawn anew (238 shapes in 2,000 TTIs) a ``SIZE`` of 4 to 64
-    made decoding up to 35% slower than the eager path and never more than
-    4% faster, by captures whose graphs were dropped before their shape
-    came back, and 256 made it 37-45% faster. So ``SIZE`` holds every
-    shape a 20 MHz UE decodes, and memory, not a count, bounds the graphs:
-    a shape at B=1 holds at most a few MB, the largest shape the port
-    decodes (B=256 x 13 blocks of K=5824) 0.65 GB, so about seven of those
-    fit a sixteenth of an 80 GB card. The first capture on a device also
-    holds cuBLAS's workspace for the capture stream (32 MB).
-
-    Memory: every graph of a device captures into one private pool on one
-    side stream of that device, so the pool holds each cached shape's state
-    and one shape's scratch, not a scratch a shape. Sharing is safe because
-    decodes run one at a time in stream order, each call's prep replay
-    rewrites every tensor of the pool that its iteration graph reads, and
-    the results are cloned out before the call returns: another shape's
-    graph may reuse this one's scratch and dead state between two calls,
-    never within one. The static inputs and the clones are outside the pool.
-    Once every graph of a pool has been dropped the allocator refuses
-    further captures into it, so the next capture takes a fresh pool.
-    """
-
-    SIZE = 256
-    SHARE = 16
-
-    def __init__(self):
-        self.keys: collections.OrderedDict = collections.OrderedDict()  # key -> _Graphed | None
-        self.pools: dict = {}  # device -> graph pool
-
-    def get(self, key, d_llrs, crc_m, k: int, lw: int, kernel: str):
-        """The captured loop of `key`, captured now if the key is held
-        without one; None (run eagerly) if the key is not held."""
-        if key not in self.keys:
-            self.keys[key] = None
-            if len(self.keys) > self.SIZE:
-                self.keys.popitem(last=False)
-            return None
-        self.keys.move_to_end(key)
-        if self.keys[key] is None:
-            dev = d_llrs.device
-            if not self._holding(dev):
-                self.pools[dev] = _new_pool(dev)
-            self.keys[key] = _Graphed(d_llrs, crc_m, k, lw, kernel, self.pools[dev],
-                                      _capture_stream(dev))
-            held = self._holding(dev)
-            while (sum(self.keys[h].bytes for h in held) > _memory(dev) // self.SHARE
-                   and held[0] != key):
-                del self.keys[held.pop(0)]
-        return self.keys[key]
-
-    def _holding(self, dev) -> list:
-        """The keys holding graphs on `dev`, least recently used first."""
-        return [h for h, g in self.keys.items() if g is not None and g.device == dev]
-
-
-_GRAPHS = _GraphCache()
-
-
 def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
            crc_mat: np.ndarray | torch.Tensor | None = None,
            early_exit: bool = True, kernel: str = "r2max", window: int | None = None):
@@ -532,17 +427,20 @@ def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,
 
     On a card, an input shape that comes back among the last few shapes
     decoded has its loop captured and then replayed as CUDA graphs
-    (``_GraphCache``): the same work, the same results bit for bit, without
-    the host dispatching each of its operations.
+    (``utils.graphs.GraphCache``): the same work, the same results bit for
+    bit, without the host dispatching each of its operations.
     """
     dev = d_llrs.device
     lw = _window(k, window)
     crc_m = _crc_of(crc_mat, dev)
     graphed = None
     if dev.type == "cuda" and n_iters > 0:
+        # everything the captured loop depends on; n_iters and early_exit
+        # only steer the replays
         key = (dev, tuple(d_llrs.shape), d_llrs.dtype, k, lw, kernel,
                None if crc_m is None else tuple(crc_m.shape))
-        graphed = _GRAPHS.get(key, d_llrs, crc_m, k, lw, kernel)
+        graphed = graphs.GRAPHS.get(key, dev, lambda pool, stream: _Graphed(
+            d_llrs, crc_m, k, lw, kernel, pool, stream))
     if graphed is None:
         loop = _Loop(k, lw, kernel, dev)
         loop.prep(d_llrs, crc_m)

@@ -10,7 +10,9 @@ stages run eagerly on the device of the input with cached codecs and
 tables. Control decisions surface to the host between stages, as at the
 PHY -> MAC boundary: the CFI (one sync) and the blind-search hits (one per
 DCI format searched). Each stage is a span (``utils.trace.SPANS``) under
-``ue_dl.process`` while a profiler records.
+``ue_dl.process`` while a profiler records. On a card the front end
+replays as one CUDA graph at a recurring cell, subframe and input shape
+(``phy/frontend.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ..utils.device import resolve, to_host
 from ..utils.trace import annotate
-from . import chest, control, dci, equalize, ofdm
+from . import chest, control, dci, equalize, frontend, ofdm
 from .cell import Cell, DlGrant
 from .pdsch import codec as get_codec
 
@@ -59,16 +61,37 @@ class UeDl:
         return torch.as_tensor(iq, dtype=torch.complex64, device=self.device)
 
     # --- stage 1: front end ----------------------------------------------
-    def _front_end(self, iq: torch.Tensor, subframe: int):
-        cell = self.cell
+    def _front_end(self, iq, subframe: int):
+        """(grid, channel estimate of each port, noise, equalized grid, its
+        noise, channel metrics) of iq [..., sf_len]. On a card the whole
+        chain is replayed as one CUDA graph once this cell, subframe and
+        input shape come back (``frontend.run``); a host array is then
+        copied straight into the graph's input."""
         with annotate("ue_dl.frontend"):
-            grid = ofdm.demodulate(cell, iq)
-            hs, nvar, rsrp = self._estimate(grid, subframe)
-            if len(hs) == 2:
-                g_eq, nv_eff = control.sfbc_equalize_control(cell, grid, hs[0], hs[1], nvar)
-            else:
-                g_eq, nv_eff = equalize.zf(grid, hs[0], nvar)
-            return grid, hs, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp)
+            if self.device.type != "cuda":
+                return self._front_end_ops(self._iq(iq), subframe)
+            x = self._iq(iq) if torch.is_tensor(iq) else torch.as_tensor(iq, dtype=torch.complex64)
+            return frontend.run(("ue_dl.front_end", self.cell, subframe),
+                                lambda x: self._front_end_ops(x, subframe), x, self.device,
+                                lambda: self._tables(subframe))
+
+    def _front_end_ops(self, iq: torch.Tensor, subframe: int):
+        cell = self.cell
+        grid = ofdm.demodulate(cell, iq)
+        hs, nvar, rsrp = self._estimate(grid, subframe)
+        if len(hs) == 2:
+            g_eq, nv_eff = control.sfbc_equalize_control(cell, grid, hs[0], hs[1], nvar)
+        else:
+            g_eq, nv_eff = equalize.zf(grid, hs[0], nvar)
+        return grid, hs, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp)
+
+    def _tables(self, subframe: int) -> list:
+        """The device tables ``_front_end_ops`` reads."""
+        tables = [chest.device_tables(self.cell, p, subframe, self.device)
+                  for p in range(self.cell.n_ports)]
+        if self.cell.n_ports == 2:
+            tables.append(control.control_region_index(self.cell, self.device))
+        return tables
 
     def _estimate(self, grid: torch.Tensor, subframe: int):
         """(channel estimate of each port, port 0's noise and RSRP)."""
@@ -142,7 +165,7 @@ class UeDl:
         TM1/TM2 C-RNTI search, "1c" for SI/P/RA-RNTI."""
         cell = self.cell
         with annotate("ue_dl.process"):
-            grid, hs, nvar, g_eq, nv_eff, m = self._front_end(self._iq(iq), subframe)
+            grid, hs, nvar, g_eq, nv_eff, m = self._front_end(iq, subframe)
             with annotate("ue_dl.control"):
                 with annotate("ue_dl.pcfich"):
                     cfi_dev, _ = control.pcfich_decode(cell, g_eq, nv_eff, subframe)

@@ -6,7 +6,8 @@ the clock of the device trace: ``torch.profiler.record_function`` while a
 profiler records, and otherwise one shared no-op context, which adds no
 sync, no CUDA event and no allocation. Spans live in the profiler's memory
 and go out with its trace. ``SPANS`` names every span the receive path
-records; ``turbo.exit_check`` and ``turbo.graph_capture`` are also counters
+records; ``turbo.exit_check``, ``turbo.graph_capture`` and the frontends'
+``frontend.graph_capture`` and ``frontend.graph_replay`` are also counters
 (spans counted per step).
 
 ``ProfilerTrace`` stands in for the reference's ``XlaTrace`` (jax.profiler)
@@ -35,6 +36,8 @@ SPANS = (
     "ue_dl.pdsch",           # one grant's PDSCH chain
     "ue_dl.to_host",         # ue_dl.pdsch's child: payload, flags and iterations read
     "pdsch.frontend",        # the grant-known frontend (pdsch.equalized)
+    "frontend.graph_capture",  # counter: either frontend's capture as one CUDA graph
+    "frontend.graph_replay",   # counter: either frontend's replay of its graph, copies in and out
     "pdsch.demap_dematch",   # every K-group's demap kernel
     "pdsch.turbo",           # the turbo driver over every K-group
     "turbo.iteration",       # one pass of a turbo loop

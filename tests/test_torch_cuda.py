@@ -754,3 +754,195 @@ def test_blind_search_and_pusch_decode_through_the_demap_kernel(cuda_device):
     for uci in (out["cpu"][3], out[str(cuda_device)][3]):
         np.testing.assert_array_equal(uci[0], cqi)
         assert uci[1] is False
+
+
+# ------------------------------------------------------- the frontends' graphs
+@pytest.fixture
+def frontend_graphs(cuda_device, monkeypatch):
+    """The card with an empty graph cache, the frontends' captures and
+    replays counted."""
+    from srsue_tpu_torch.phy import frontend
+    from srsue_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
+    counts = {"capture": 0, "replay": 0}
+
+    class Counted(frontend._Replayed):
+        def __init__(self, *args):
+            super().__init__(*args)
+            counts["capture"] += 1
+
+        def __call__(self, x):
+            counts["replay"] += 1
+            return super().__call__(x)
+
+    monkeypatch.setattr(frontend, "_Replayed", Counted)
+    return counts
+
+
+def _frontend_iq(ports: int, batch: int, seed: int = 3):
+    """A C-RNTI subframe (DCI 1A and its PDSCH at MCS 9) of a 20 MHz cell at
+    B=1, of a 5 MHz one at B=4 (one stream a row), in host memory."""
+    from srsue_tpu_torch import rx
+
+    cell = Cell(n_prb=100 if batch == 1 else 25, cell_id=150, n_ports=ports)
+    sf, rows = rx.DATA_SF, []
+    for i in range(batch):
+        s = rx.build_cell_stream(cell, 1, snr_db=20, seed=seed + i, crnti=0x7B7B, mcs_data=9)
+        rows.append(s.iq[sf * cell.sf_len: (sf + 1) * cell.sf_len])
+    return cell, sf, (rows[0] if batch == 1 else np.stack(rows)).astype(np.complex64)
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _tensors(out[k])]
+    return [t for v in out for t in _tensors(v)]
+
+
+def _close(got, want) -> bool:
+    """Every tensor within 1e-6 of the largest magnitude of its eager
+    twin; True if all are equal bit for bit."""
+    exact = True
+    for g, w in zip(_tensors(got), _tensors(want), strict=True):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = float(w.abs().max()) or 1.0
+        assert float((g - w).abs().max()) <= 1e-6 * scale
+        exact &= bool(torch.equal(g, w))
+    return exact
+
+
+def _frontend_call(which: str, cell, sf, iq, dev):
+    """The frontend `which` as its callers call it: ``UeDl._front_end`` on
+    the host array (B=1) or a card tensor (B=4), ``pdsch.equalized`` on a
+    card tensor with a codec of the subframe's grant."""
+    from srsue_tpu_torch.phy import pdsch
+    from srsue_tpu_torch.phy.ue_dl import UeDl
+
+    if which == "ue_dl":
+        ue = UeDl(cell, device=dev)
+        x = iq if iq.ndim == 1 else torch.as_tensor(iq, device=dev)
+        return lambda: ue._front_end(x, sf)
+    codec = PdschCodec(cell, ra.dl_grant(cell.n_prb, 9), 0x7B7B, sf, 2, device=dev)
+    x = torch.as_tensor(iq, device=dev)
+    return lambda: pdsch.equalized(cell, codec, sf, x)
+
+
+@pytest.mark.parametrize("which,ports,batch", [
+    ("equalized", 1, 1), ("equalized", 1, 4), ("ue_dl", 1, 1), ("ue_dl", 1, 4),
+    ("ue_dl", 2, 1), ("ue_dl", 2, 4)])
+def test_frontend_replay_equals_eager(frontend_graphs, cuda_device, which, ports, batch):
+    """A frontend's first call at a key runs eagerly, its second captures
+    and replays, later ones replay; each replay equals the eager call within
+    1e-6 of each output's scale (printed: bit for bit or not), and
+    ``UeDl.process`` makes the CPU's decisions eager, capturing and
+    replaying."""
+    from srsue_tpu_torch.phy.ue_dl import UeDl
+
+    cell, sf, iq = _frontend_iq(ports, batch)
+    call = _frontend_call(which, cell, sf, iq, cuda_device)
+    eager = call()
+    assert frontend_graphs == {"capture": 0, "replay": 0}
+    replays = []
+    for i in range(3):
+        replays.append(call())
+        assert frontend_graphs == {"capture": 1, "replay": i + 1}
+    exact = [_close(r, eager) for r in replays]
+    print(f"frontend {which} ports {ports} B={batch}: replays bit for bit {exact}")
+
+    cpu = UeDl(cell, device="cpu").process(iq, sf, 0x7B7B)
+    assert len(cpu.grants) == 1 and cpu.tb_ok.all()
+    for _ in range(3):  # eager, capture and replay (ue_dl: replays)
+        res = UeDl(cell, device=cuda_device).process(iq, sf, 0x7B7B)
+        assert res.cfi == cpu.cfi and res.grants == cpu.grants
+        assert res.hits_per_elem == cpu.hits_per_elem
+        for a, b in zip((res.payload, res.tb_ok, res.turbo_iters),
+                        (cpu.payload, cpu.tb_ok, cpu.turbo_iters)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["equalized", "ue_dl"])
+def test_frontend_held_results_survive(frontend_graphs, cuda_device, which):
+    """A replayed result a caller holds stays as it was after the next
+    replay at its key (on other IQ), after turbo decodes that capture and
+    replay their own graphs into the same pool, and after the caches of
+    the tables the graph reads drop them and the freed memory is reused;
+    the graph then still gives the eager result."""
+    from srsue_tpu_torch.phy import chest, control, frontend
+
+    cell, sf, iq = _frontend_iq(2 if which == "ue_dl" else 1, 4)
+    _, _, other = _frontend_iq(cell.n_ports, 4, seed=11)
+    call = _frontend_call(which, cell, sf, iq, cuda_device)
+    eager = frontend._clone(call())
+    held = call()
+    assert frontend_graphs["capture"] == 1
+    _frontend_call(which, cell, sf, other, cuda_device)()
+    d, m = _card_turbo_inputs(cuda_device)
+    for _ in range(3):
+        turbo.decode(d, 512, 8, m)
+    chest.device_tables.cache_clear()
+    control.control_region_index.cache_clear()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << 20,), float("nan"), device=cuda_device) for _ in range(64)]
+    assert _close(held, eager)
+    assert _close(call(), eager)
+    assert frontend_graphs == {"capture": 1, "replay": 3}
+    del junk
+
+
+def _card_turbo_inputs(dev):
+    k = 512
+    rng = np.random.default_rng(5)
+    m = np.zeros((k, 24), np.uint8)
+    m[:k - 24] = crcmod.crc_matrix(k - 24, "24A")
+    m[k - 24:] = np.eye(24, dtype=np.uint8)
+    msgs = [crcmod.attach(rng.integers(0, 2, k - 24).astype(np.uint8), "24A") for _ in range(3)]
+    x = 1.0 - 2.0 * np.stack([turbo.encode(msg) for msg in msgs]).astype(np.float32)
+    llrs = 2.0 * (x + 0.8 * rng.standard_normal(x.shape).astype(np.float32)) / 0.64
+    return (torch.as_tensor(llrs, dtype=torch.float32, device=dev),
+            torch.as_tensor(m, dtype=torch.float32, device=dev))
+
+
+def test_frontend_cpu_tensors_never_capture(frontend_graphs):
+    """On a machine with a card, CPU frontends stay eager and enter no key."""
+    from srsue_tpu_torch.utils import graphs
+
+    for which in ("ue_dl", "equalized"):
+        cell, sf, iq = _frontend_iq(1, 1)
+        call = _frontend_call(which, cell, sf, iq, torch.device("cpu"))
+        for _ in range(3):
+            call()
+    assert frontend_graphs == {"capture": 0, "replay": 0} and not graphs.GRAPHS.keys
+
+
+def test_frontend_budget_drops_least_recently_used(frontend_graphs, cuda_device, monkeypatch):
+    """With room in a sixteenth of the card for one and a half frontend
+    graphs, each capture at a new subframe drops the graph held before it;
+    a dropped subframe runs eagerly again, then captures again, and every
+    result equals its eager one."""
+    from srsue_tpu_torch.phy import frontend
+    from srsue_tpu_torch.phy.ue_dl import UeDl
+    from srsue_tpu_torch.utils import graphs
+
+    cell, _, iq = _frontend_iq(1, 4)
+    ue = UeDl(cell, device=cuda_device)
+    x = torch.as_tensor(iq, device=cuda_device)
+    eager = {sf: frontend._clone(ue._front_end(x, sf)) for sf in (0, 1, 2, 3)}
+    for sf in (0, 1):  # a capture each: the first also holds what its stream keeps
+        ue._front_end(x, sf)
+    (one,) = [g.bytes for k, g in graphs.GRAPHS.keys.items() if g is not None and k[2] == 1]
+    graphs.GRAPHS.keys.clear()
+    monkeypatch.setattr(graphs, "memory", lambda dev: graphs.GraphCache.SHARE * (3 * one // 2))
+
+    def held():
+        return [k[2] for k, g in graphs.GRAPHS.keys.items() if g is not None]
+
+    for sf in (2, 3, 1):
+        for _ in range(2):  # eager, then the capture
+            assert _close(ue._front_end(x, sf), eager[sf])
+        assert held() == [sf]
+    assert frontend_graphs["capture"] == 5
+    for sf in (2, 1):
+        assert _close(ue._front_end(x, sf), eager[sf])  # 2 dropped: eager; 1 replays
+    assert held() == [1] and frontend_graphs == {"capture": 5, "replay": 6}

@@ -19,7 +19,7 @@ from srsue_tpu_torch.phy.cell import Cell, UlGrant
 from srsue_tpu_torch.phy.pdsch import PdschCodec
 from srsue_tpu_torch.phy.ra import dl_grant
 from srsue_tpu_torch.phy.ue_dl import UeDl
-from srsue_tpu_torch.utils import trace
+from srsue_tpu_torch.utils import graphs, trace
 
 PACKAGE = Path(__file__).resolve().parent.parent / "srsue_tpu_torch"
 # a 6 PRB carrier, CFI 3, C-RNTI 0x1234 granted the whole band at MCS 20 by a
@@ -138,7 +138,7 @@ def test_graph_capture_inside_pdsch_turbo(tmp_path, monkeypatch):
     replays and records none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    monkeypatch.setattr(turbo, "_GRAPHS", turbo._GraphCache())
+    monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
     iq = _iq("tm1").cuda()
     ue = UeDl(_cell("tm1"), n_turbo_iters=CFG["turbo_iters"], device="cuda")
     run = lambda: ue.process(iq, CFG["subframe"], CFG["rnti"])  # noqa: E731
@@ -158,6 +158,29 @@ def test_graph_capture_inside_pdsch_turbo(tmp_path, monkeypatch):
 
 def test_graph_capture_is_a_span():
     assert "turbo.graph_capture" in trace.SPANS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tm", ["tm1", "tm2"])
+def test_frontend_graph_spans_inside_the_frontend(tm, tmp_path, monkeypatch):
+    """On the card the second call at a shape captures the frontend, one
+    ``frontend.graph_capture`` and one ``frontend.graph_replay`` span inside
+    ``ue_dl.frontend``; the third only replays; the first records neither."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
+    iq = _iq(tm).cuda()
+    ue = UeDl(_cell(tm), n_turbo_iters=CFG["turbo_iters"], device="cuda")
+    counts = []
+    for i in range(3):
+        _, events = _recorded(lambda: ue.process(iq, CFG["subframe"], CFG["rnti"]),
+                              tmp_path / str(i))
+        ours = [e for e in events if e["name"].startswith("frontend.")]
+        assert all(_parent(e, events) == "ue_dl.frontend" for e in ours)
+        counts.append(sorted(e["name"] for e in ours))
+    assert counts == [[], ["frontend.graph_capture", "frontend.graph_replay"],
+                      ["frontend.graph_replay"]]
+    assert {"frontend.graph_capture", "frontend.graph_replay"} <= set(trace.SPANS)
 
 
 @pytest.mark.parametrize("form", ["forced", "masked"])

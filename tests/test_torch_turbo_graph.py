@@ -4,7 +4,8 @@ On the CPU: the loop with the tail betas computed once a decode and no exit
 check before the first iteration gives the results, bit for bit, of a frozen
 copy of the loop that recomputed them in every half and checked first.
 
-The graph cache's policy, with a stand-in for the capture: a shape that
+The graph cache's policy (``utils.graphs.GraphCache``, which the
+receive frontends share), with a stand-in for the capture: a shape that
 comes back within the cache's last ``SIZE`` shapes is captured, one that
 comes back later runs eagerly again.
 
@@ -30,7 +31,7 @@ import torch
 from srsue_tpu_torch.kernels import bcjr
 from srsue_tpu_torch.phy import crc as crcmod
 from srsue_tpu_torch.phy import turbo
-from srsue_tpu_torch.utils import trace
+from srsue_tpu_torch.utils import graphs, trace
 
 
 def _inputs(k: int, snrs_db, seed: int):
@@ -142,7 +143,7 @@ def cuda_device(monkeypatch):
         pytest.skip("needs a CUDA GPU")
     from srsue_tpu_torch.utils.device import require_cuda
 
-    monkeypatch.setattr(turbo, "_GRAPHS", turbo._GraphCache())
+    monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
     return require_cuda()
 
 
@@ -216,7 +217,7 @@ def test_replayed_launches_follow_the_body(cuda_device, monkeypatch):
         turbo.decode(d, k, 5, m, early_exit=False)
         counts.append(bcjr.launches["r2max"] - before)
     assert counts == [4 * 5] * 3
-    assert list(turbo._GRAPHS.keys.values()) != [None]
+    assert list(graphs.GRAPHS.keys.values()) != [None]
 
 
 @pytest.mark.cuda
@@ -231,12 +232,12 @@ def test_shapes_share_the_pool(cuda_device, monkeypatch):
             super().__init__(*args)
             captured.append(args[2])
 
-    monkeypatch.setattr(turbo._GraphCache, "SIZE", 2)
+    monkeypatch.setattr(graphs.GraphCache, "SIZE", 2)
     monkeypatch.setattr(turbo, "_Graphed", Counted)
     cases = [(k,) + _card_inputs(b, 3, k, cuda_device) for b, k in
              [(1, 40), (3, 40), (2, 512), (1, 5824)]]
     eager = [turbo.decode(d, k, 8, m) for k, d, m in cases]
-    turbo._GRAPHS.keys.clear()
+    graphs.GRAPHS.keys.clear()
     for _ in range(3):
         for pair in ((0, 1), (2, 3)):
             for _ in range(2):
@@ -244,7 +245,7 @@ def test_shapes_share_the_pool(cuda_device, monkeypatch):
                     k, d, m = cases[i]
                     _equal(turbo.decode(d, k, 8, m), eager[i])
     assert captured == [40, 40, 512, 5824] * 3
-    assert sum(g is not None for g in turbo._GRAPHS.keys.values()) == 2
+    assert sum(g is not None for g in graphs.GRAPHS.keys.values()) == 2
 
 
 def test_cache_captures_a_shape_that_comes_back_within_size(monkeypatch):
@@ -253,21 +254,21 @@ def test_cache_captures_a_shape_that_comes_back_within_size(monkeypatch):
     them replays, and a key that comes back after more than ``SIZE``
     others runs eagerly again; a capture takes a fresh pool once every
     graph of the last one has been dropped."""
+    dev = torch.device("cpu")
+
     class Fake:
-        def __init__(self, d_llrs, crc_m, k, lw, kernel, pool, stream):
-            self.device, self.pool, self.bytes = d_llrs.device, pool, 0
+        def __init__(self, pool, stream):
+            self.device, self.pool, self.bytes = dev, pool, 0
 
     pools = iter(range(1, 10))
-    monkeypatch.setattr(turbo, "_Graphed", Fake)
-    monkeypatch.setattr(turbo, "_new_pool", lambda dev: next(pools))
-    monkeypatch.setattr(turbo, "_capture_stream", lambda dev: None)
-    monkeypatch.setattr(turbo, "_memory", lambda dev: 1 << 40)
-    cache = turbo._GraphCache()
+    monkeypatch.setattr(graphs, "new_pool", lambda dev: next(pools))
+    monkeypatch.setattr(graphs, "capture_stream", lambda dev: None)
+    monkeypatch.setattr(graphs, "memory", lambda dev: 1 << 40)
+    cache = graphs.GraphCache()
     cache.SIZE = 3
-    d = torch.zeros(1, 3, 44)
     held, outcomes = {}, []
     for key in (1, 1, 1, 2, 3, 4, 1, 1, 2, 2, 2):
-        got = cache.get(key, d, None, 40, 40, "r2max")
+        got = cache.get(key, dev, Fake)
         outcomes.append("eager" if got is None else "replay" if got is held.get(key) else
                         f"capture into {got.pool}")
         held[key] = got
@@ -279,20 +280,20 @@ def test_cache_captures_a_shape_that_comes_back_within_size(monkeypatch):
 def test_cache_holds_graphs_within_a_share_of_memory(monkeypatch):
     """Past ``1 / SHARE`` of the card's memory, a capture drops the least
     recently used shapes holding graphs (their keys too), never itself."""
-    class Fake:
-        def __init__(self, d_llrs, crc_m, k, lw, kernel, pool, stream):
-            self.device, self.bytes = d_llrs.device, k
+    dev = torch.device("cpu")
 
-    monkeypatch.setattr(turbo, "_Graphed", Fake)
-    monkeypatch.setattr(turbo, "_new_pool", lambda dev: None)
-    monkeypatch.setattr(turbo, "_capture_stream", lambda dev: None)
-    monkeypatch.setattr(turbo, "_memory", lambda dev: turbo._GraphCache.SHARE * 100)
-    cache = turbo._GraphCache()
-    d = torch.zeros(1, 3, 44)
+    class Fake:
+        def __init__(self, nbytes):
+            self.device, self.bytes = dev, nbytes
+
+    monkeypatch.setattr(graphs, "new_pool", lambda dev: None)
+    monkeypatch.setattr(graphs, "capture_stream", lambda dev: None)
+    monkeypatch.setattr(graphs, "memory", lambda dev: graphs.GraphCache.SHARE * 100)
+    cache = graphs.GraphCache()
     outcomes = []
     for key, nbytes in [("a", 60), ("a", 60), ("b", 30), ("b", 30), ("c", 30), ("c", 30),
                         ("a", 60), ("a", 60), ("d", 150), ("d", 150)]:
-        outcomes.append("eager" if cache.get(key, d, None, nbytes, 40, "r2max") is None
-                        else "graph")
+        got = cache.get(key, dev, lambda pool, stream, n=nbytes: Fake(n))
+        outcomes.append("eager" if got is None else "graph")
     assert outcomes == ["eager", "graph"] * 5
     assert list(cache.keys) == ["d"]  # over the share alone: held, every other shape dropped
