@@ -2092,7 +2092,8 @@ def mobility_page(torch, np, dev):
     1C sizes) at the paging occasion only. Returns (the P-RNTI searches, the
     occasion, the eNB's events)."""
     from srsue_tpu_torch.mac.rnti import P_RNTI
-    from srsue_tpu_torch.phy import control
+    from srsue_tpu_torch.phy import dci
+    from srsue_tpu_torch.phy.ue_dl import UeDl
     from srsue_tpu_torch.rrc.si_sched import paging_occasion
 
     link = OtaLink(torch, np, dev, n_ports=1, seed=1)
@@ -2104,20 +2105,21 @@ def mobility_page(torch, np, dev):
            if paging_occasion(t, ue_id, n_b_t=1.0, t_drx=MOB_PAGE_T_DRX)]
     check(len(occ) == 1, f"phase 17 (b): paging occasions {occ}")
     searches = []
-    orig = control.pdcch_blind_decode
+    orig = UeDl.search
 
-    def logged(*a, **kw):
-        hits = orig(*a, **kw)
-        if a[5] == P_RNTI:
-            searches.append((link.tti, a[6], [(int(s), int(lv)) for s, lv, _ in hits]))
+    def logged(ue_dl, *a, **kw):  # Phy.work searches one format a call
+        hits = orig(ue_dl, *a, **kw)
+        if a[4] == P_RNTI:
+            searches.append((link.tti, dci.size(ue_dl.cell.n_prb, *a[6]),
+                             [(int(s), int(lv)) for _, s, lv, _ in hits[0]]))
         return hits
 
-    control.pdcch_blind_decode = logged
+    UeDl.search = logged
     try:
         link.tti = max(0, occ[0] - 2)
         link.until(lambda: link.tti > occ[0] + 1, 4, noise=True)
     finally:
-        control.pdcch_blind_decode = orig
+        UeDl.search = orig
     check("paging_sent" in link.enb.events and link.ue.rrc.paged
           and link.ue.nas.paging_pending, f"phase 17 (b): not paged on {dev}: "
           f"{link.enb.events}")

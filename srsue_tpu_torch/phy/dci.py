@@ -339,3 +339,29 @@ def dci1_to_grant(cell: Cell, d: Dci1) -> DlGrant:
         rv=d.rv,
         ndi=d.ndi,
     )
+
+
+# ---------------------------------------------------------------------------
+# dispatch by searched format (the receivers' one copy: UeDl and Phy)
+# ---------------------------------------------------------------------------
+
+_SIZE = {"0_1a": size_0_1a, "1": size_1, "1c": size_1c}
+_UNPACK = {"0_1a": unpack_0_1a, "1": unpack_1, "1c": unpack_1c}
+_TO_DL_GRANT = {Dci1A: dci1a_to_grant, Dci1: dci1_to_grant, Dci1C: dci1c_to_grant}
+
+
+def size(n_rb: int, fmt: str) -> int:
+    """Payload bits of a searched format: "0_1a" (0 and 1A share one
+    size), "1" or "1c"."""
+    return _SIZE[fmt](n_rb)
+
+
+def unpack(n_rb: int, fmt: str, bits: np.ndarray):
+    """The DCI of a searched format's payload bits."""
+    return _UNPACK[fmt](n_rb, bits)
+
+
+def to_dl_grant(cell: Cell, d) -> DlGrant | None:
+    """The DL grant of a DL assignment (1A, 1 or 1C); None for a DCI 0."""
+    conv = _TO_DL_GRANT.get(type(d))
+    return None if conv is None else conv(cell, d)

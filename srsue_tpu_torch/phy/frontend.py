@@ -1,4 +1,4 @@
-"""The receive frontends as CUDA graphs: ``UeDl._front_end`` (OFDM demod,
+"""The receive frontends as CUDA graphs: ``UeDl.front_end`` (OFDM demod,
 the CRS estimate of each port, ZF or the SFBC control combining, the
 channel metrics) and ``pdsch.equalized`` (OFDM demod, port 0's CRS
 estimate, the PDSCH RE extract, ZF) are chains of 150-350 small operations,
@@ -18,11 +18,14 @@ from ..utils.trace import annotate
 
 
 def _clone(out):
-    """A copy of every tensor of a tuple, list or dict of tensors."""
+    """A copy of every tensor of a tuple, named tuple, list or dict of
+    tensors."""
     if isinstance(out, torch.Tensor):
         return out.clone()
     if isinstance(out, dict):
         return {k: _clone(v) for k, v in out.items()}
+    if hasattr(out, "_fields"):
+        return type(out)(*map(_clone, out))
     return type(out)(_clone(v) for v in out)
 
 

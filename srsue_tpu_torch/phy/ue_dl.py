@@ -5,6 +5,11 @@ zero-forced; a 2-port cell (TM2) takes the transmit-diversity chain: both
 ports estimated, the control region SFBC-combined
 (``control.sfbc_equalize_control``) and the PDSCH REs Alamouti-combined.
 
+The stages are the UE's one downlink receiver: ``process`` is
+``front_end``, ``cfi``, ``search`` and each grant's ``equalize_pdsch`` and
+decode, and the UE's ``Phy.work`` runs each subframe through the same
+stages, handing the equalized PDSCH to the MAC's HARQ.
+
 A [batch] axis of independent subframes rides through every stage. The
 stages run eagerly on the device of the input with cached codecs and
 tables. Control decisions surface to the host between stages, as at the
@@ -18,15 +23,15 @@ replays as one CUDA graph at a recurring cell, subframe and input shape
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve, to_host
 from ..utils.trace import annotate
-from . import chest, control, dci, equalize, frontend, ofdm
+from . import chest, control, dci, equalize, frontend, ofdm, pdsch
 from .cell import Cell, DlGrant
-from .pdsch import codec as get_codec
 
 
 @dataclass
@@ -45,6 +50,17 @@ class DlResult:
     decoded: list = None
 
 
+class Front(NamedTuple):
+    """What ``UeDl.front_end`` gives, on the device, batched as its IQ."""
+
+    grid: torch.Tensor    # [..., n_sym_sf, n_sc] resource grid
+    hs: tuple             # the channel estimate of each port, grid-shaped
+    nvar: torch.Tensor    # port 0's noise
+    g_eq: torch.Tensor    # the grid zero-forced, or SFBC-combined over the control region
+    nv_eff: torch.Tensor  # g_eq's noise
+    metrics: dict         # ``chest.metrics``: RSSI, RSRQ, SNR, RSRP, noise
+
+
 class UeDl:
     """Per-cell DL receiver on `device` (the current CUDA device by
     default), with codecs cached per grant."""
@@ -61,12 +77,11 @@ class UeDl:
         return torch.as_tensor(iq, dtype=torch.complex64, device=self.device)
 
     # --- stage 1: front end ----------------------------------------------
-    def _front_end(self, iq, subframe: int):
-        """(grid, channel estimate of each port, noise, equalized grid, its
-        noise, channel metrics) of iq [..., sf_len]. On a card the whole
-        chain is replayed as one CUDA graph once this cell, subframe and
-        input shape come back (``frontend.run``); a host array is then
-        copied straight into the graph's input."""
+    def front_end(self, iq, subframe: int) -> Front:
+        """The front end of iq [..., sf_len] (a batch or one subframe). On
+        a card the whole chain is replayed as one CUDA graph once this
+        cell, subframe and input shape come back (``frontend.run``); a host
+        array is then copied straight into the graph's input."""
         with annotate("ue_dl.frontend"):
             if self.device.type != "cuda":
                 return self._front_end_ops(self._iq(iq), subframe)
@@ -75,15 +90,17 @@ class UeDl:
                                 lambda x: self._front_end_ops(x, subframe), x, self.device,
                                 lambda: self._tables(subframe))
 
-    def _front_end_ops(self, iq: torch.Tensor, subframe: int):
+    def _front_end_ops(self, iq: torch.Tensor, subframe: int) -> Front:
         cell = self.cell
         grid = ofdm.demodulate(cell, iq)
-        hs, nvar, rsrp = self._estimate(grid, subframe)
-        if len(hs) == 2:
-            g_eq, nv_eff = control.sfbc_equalize_control(cell, grid, hs[0], hs[1], nvar)
+        h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
+        if cell.n_ports == 2:
+            hs = (h, chest.estimate(cell, grid, subframe, port=1)[0])
+            g_eq, nv_eff = control.sfbc_equalize_control(cell, grid, h, hs[1], nvar)
         else:
-            g_eq, nv_eff = equalize.zf(grid, hs[0], nvar)
-        return grid, hs, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp)
+            hs = (h,)
+            g_eq, nv_eff = equalize.zf(grid, h, nvar)
+        return Front(grid, hs, nvar, g_eq, nv_eff, chest.metrics(cell, grid, nvar, rsrp))
 
     def _tables(self, subframe: int) -> list:
         """The device tables ``_front_end_ops`` reads."""
@@ -93,66 +110,68 @@ class UeDl:
             tables.append(control.control_region_index(self.cell, self.device))
         return tables
 
-    def _estimate(self, grid: torch.Tensor, subframe: int):
-        """(channel estimate of each port, port 0's noise and RSRP)."""
-        h, nvar, rsrp = chest.estimate(self.cell, grid, subframe, port=0)
-        if self.cell.n_ports == 2:
-            return (h, chest.estimate(self.cell, grid, subframe, port=1)[0]), nvar, rsrp
-        return (h,), nvar, rsrp
+    # --- stage 2: control ---------------------------------------------------
+    def cfi(self, g_eq, nv_eff, subframe: int) -> int:
+        """The CFI of (the first) subframe from its PCFICH: one host read."""
+        with annotate("ue_dl.pcfich"):
+            cfi_dev, _ = control.pcfich_decode(self.cell, g_eq, nv_eff, subframe)
+            return int(to_host(cfi_dev).reshape(-1)[0])
 
-    # --- stage 2: grant-known PDSCH chain --------------------------------
-    def _pdsch_chain(self, grid, hs, nvar, grant: DlGrant, rnti: int, subframe: int,
-                     cfi: int):
+    def search(self, g_eq, nv_eff, subframe: int, cfi: int, rnti: int,
+               ue_specific: bool = True, formats: tuple = ("0_1a",)) -> list[list]:
+        """Blind search for `rnti` in each DCI format of `formats` ("0_1a",
+        "1", "1c"): for each batch element (one for an unbatched grid) its
+        hits [(format, start CCE, L, payload bits)], format by format, each
+        in ``control.blind_hits``' order. One batched search (one Viterbi
+        launch) per format over every candidate and element, all launched
+        before the first host read. An empty search space gives no hits."""
+        batched = g_eq.ndim == 3
+        hits: list[list] = [[] for _ in range(g_eq.shape[0] if batched else 1)]
+        n_prb = self.cell.n_prb
+        with annotate("ue_dl.blind_search"):
+            n_cce, _ = control.pdcch_geometry(self.cell, cfi)
+            cands = control.search_space_candidates(n_cce, rnti, subframe, ue_specific)
+            raw = {f: control.pdcch_blind_batch(self.cell, g_eq, nv_eff, subframe, cfi, rnti,
+                                                dci.size(n_prb, f), ue_specific=ue_specific)
+                   for f in (formats if cands else ())}
+        with annotate("ue_dl.blind_hits"):
+            for f, (hard, ok) in raw.items():
+                hard, ok = to_host(hard), to_host(ok)
+                if not batched:
+                    hard, ok = hard[None], ok[None]
+                n = dci.size(n_prb, f)
+                for elem, h, o in zip(hits, hard, ok, strict=True):
+                    for start, l, bits in control.blind_hits(cands, h, o, n):
+                        elem.append((f, start, l, bits))
+        return hits
+
+    # --- stage 3: grant-known PDSCH chain --------------------------------
+    def codec(self, grant: DlGrant, rnti: int, subframe: int, cfi: int) -> pdsch.PdschCodec:
+        """The grant's cached codec (``pdsch.codec``), one entry whichever
+        facade asks."""
+        return pdsch.codec(self.cell, grant, rnti, subframe, cfi, self.n_turbo_iters,
+                           self.device)
+
+    def equalize_pdsch(self, front: Front, codec: pdsch.PdschCodec):
+        """(x_eq, nv_eff) of the codec's PDSCH REs in `front`: ZF on 1 port,
+        Alamouti combining on 2."""
+        y = codec.extract_re(front.grid)
+        hs = [codec.extract_re(h) for h in front.hs]
+        if len(hs) == 2:
+            return equalize.alamouti_combine(y, hs[0], hs[1], front.nvar)
+        return equalize.zf(y, hs[0], front.nvar)
+
+    def _pdsch_chain(self, front: Front, grant: DlGrant, rnti: int, subframe: int, cfi: int):
         with annotate("ue_dl.pdsch"):
-            codec = get_codec(self.cell, grant, rnti, subframe, cfi, self.n_turbo_iters,
-                              self.device)
-            y = codec.extract_re(grid)
-            if len(hs) == 2:
-                x_eq, nv_eff = equalize.alamouti_combine(
-                    y, codec.extract_re(hs[0]), codec.extract_re(hs[1]), nvar)
-            else:
-                x_eq, nv_eff = equalize.zf(y, codec.extract_re(hs[0]), nvar)
-            payload, tb_ok, _, iters = codec.decode(x_eq, nv_eff)
+            codec = self.codec(grant, rnti, subframe, cfi)
+            payload, tb_ok, _, iters = codec.decode(*self.equalize_pdsch(front, codec))
             with annotate("ue_dl.to_host"):
                 return to_host(payload), to_host(tb_ok), to_host(iters)
 
     def decode_pdsch(self, iq, grant: DlGrant, rnti: int, subframe: int, cfi: int = 1):
         """Grant-known batched PDSCH decode: [batch, sf_len] IQ ->
         (payload [batch, tbs], tb_ok [batch], iters [batch, C]) on the host."""
-        grid = ofdm.demodulate(self.cell, self._iq(iq))
-        hs, nvar, _ = self._estimate(grid, subframe)
-        return self._pdsch_chain(grid, hs, nvar, grant, rnti, subframe, cfi)
-
-    # --- stage 3: blind search (all elements, all formats) -----------------
-    def _blind_search(self, g_eq, nv_eff, subframe: int, cfi: int, rnti: int,
-                      ue_specific: bool, formats: tuple) -> dict:
-        """{format: (hard, ok)}: one batched search (one Viterbi launch) per
-        DCI size, over every candidate and batch element."""
-        with annotate("ue_dl.blind_search"):
-            return {f: control.pdcch_blind_batch(self.cell, g_eq, nv_eff, subframe, cfi, rnti,
-                                                 self._dci_len(f), ue_specific=ue_specific)
-                    for f in formats}
-
-    def _dci_len(self, fmt: str) -> int:
-        n_rb = self.cell.n_prb
-        return {"0_1a": dci.size_0_1a(n_rb), "1": dci.size_1(n_rb),
-                "1c": dci.size_1c(n_rb)}[fmt]
-
-    def _unpack(self, fmt: str, bits: np.ndarray):
-        if fmt == "0_1a":
-            return dci.unpack_0_1a(self.cell.n_prb, bits)
-        if fmt == "1":
-            return dci.unpack_1(self.cell.n_prb, bits)
-        return dci.unpack_1c(self.cell.n_prb, bits)
-
-    def _to_dl_grant(self, d):
-        if isinstance(d, dci.Dci1A):
-            return dci.dci1a_to_grant(self.cell, d)
-        if isinstance(d, dci.Dci1):
-            return dci.dci1_to_grant(self.cell, d)
-        if isinstance(d, dci.Dci1C):
-            return dci.dci1c_to_grant(self.cell, d)
-        return None
+        return self._pdsch_chain(self.front_end(iq, subframe), grant, rnti, subframe, cfi)
 
     # --- full control + data subframe processing ---------------------------
     def process(self, iq, subframe: int, rnti: int, ue_specific: bool = True,
@@ -163,40 +182,24 @@ class UeDl:
 
         formats: DCI sizes to blind-search: "0_1a" always; add "1" for the
         TM1/TM2 C-RNTI search, "1c" for SI/P/RA-RNTI."""
-        cell = self.cell
+        n_prb = self.cell.n_prb
         with annotate("ue_dl.process"):
-            grid, hs, nvar, g_eq, nv_eff, m = self._front_end(iq, subframe)
+            front = self.front_end(iq, subframe)
             with annotate("ue_dl.control"):
-                with annotate("ue_dl.pcfich"):
-                    cfi_dev, _ = control.pcfich_decode(cell, g_eq, nv_eff, subframe)
-                    cfi = int(to_host(cfi_dev).reshape(-1)[0])
+                cfi = self.cfi(front.g_eq, front.nv_eff, subframe)
+                hits = self.search(front.g_eq, front.nv_eff, subframe, cfi, rnti, ue_specific,
+                                   tuple(formats))
+                hits_per_elem = [[(f, dci.unpack(n_prb, f, bits)) for f, _, _, bits in elem]
+                                 for elem in hits]
 
-                raw = self._blind_search(g_eq, nv_eff, subframe, cfi, rnti, ue_specific,
-                                         tuple(formats))
-                with annotate("ue_dl.blind_hits"):
-                    batched = g_eq.ndim == 3
-                    n_batch = g_eq.shape[0] if batched else 1
-                    n_cce, _ = control.pdcch_geometry(cell, cfi)
-                    cands = control.search_space_candidates(n_cce, rnti, subframe, ue_specific)
-                    hits_per_elem: list[list] = [[] for _ in range(n_batch)]
-                    for f in formats:
-                        hard, ok = (to_host(x) for x in raw[f])
-                        if not batched:
-                            hard, ok = hard[None], ok[None]
-                        n = self._dci_len(f)
-                        for b in range(n_batch):
-                            for _, _, bits in control.blind_hits(cands, hard[b], ok[b], n):
-                                hits_per_elem[b].append((f, self._unpack(f, bits)))
-
-            grants = [g for g in (self._to_dl_grant(d) for _, d in hits_per_elem[0])
+            grants = [g for g in (dci.to_dl_grant(self.cell, d) for _, d in hits_per_elem[0])
                       if g is not None]
             with annotate("ue_dl.metrics"):
-                metrics = {k: to_host(v) for k, v in m.items()}
+                metrics = {k: to_host(v) for k, v in front.metrics.items()}
             if not grants:
                 return DlResult(None, None, None, cfi, [], metrics,
                                 hits_per_elem=hits_per_elem, decoded=[])
-            decoded = [(g,) + self._pdsch_chain(grid, hs, nvar, g, rnti, subframe, cfi)
-                       for g in grants]
+            decoded = [(g,) + self._pdsch_chain(front, g, rnti, subframe, cfi) for g in grants]
             _, payload, tb_ok, iters = decoded[0]
             return DlResult(payload, tb_ok, iters, cfi, grants, metrics,
                             hits_per_elem=hits_per_elem, decoded=decoded)

@@ -122,13 +122,14 @@ def ota_attach(dev, n_prb: int, seed: int = 0, max_tti: int = 220):
     raise RuntimeError(f"no attach in {max_tti} TTIs: {enb.events[:30]}")
 
 
-# (owner module, function) pairs timed by ota_stages: the facade's stages
+# (owner module, function) pairs timed by ota_stages: the facade's stages,
+# the downlink's those of its UeDl
 _OTA_STAGES = (("phy.phy", "Phy.work"), ("phy.sync", "cfo_correct"),
-               ("phy.sync", "cfo_estimate_cp"), ("phy.ofdm", "demodulate"),
-               ("phy.chest", "estimate"), ("phy.equalize", "zf"),
-               ("phy.control", "sfbc_equalize_control"), ("phy.control", "pcfich_decode"),
-               ("phy.control", "phich_decode"), ("phy.control", "pdcch_blind_decode"),
-               ("phy.phy", "Phy._decode_dlsch"), ("mac.dl_harq", "DlHarq.tb_decoded"),
+               ("phy.sync", "cfo_estimate_cp"), ("phy.ue_dl", "UeDl.front_end"),
+               ("phy.chest", "estimate"), ("phy.ue_dl", "UeDl.cfi"),
+               ("phy.control", "phich_decode"), ("phy.ue_dl", "UeDl.search"),
+               ("phy.phy", "Phy._decode_dlsch"), ("phy.ue_dl", "UeDl.equalize_pdsch"),
+               ("mac.dl_harq", "DlHarq.tb_decoded"),
                ("mac.mac", "Mac._decode_now"), ("phy.phy", "Phy._assemble_ul"),
                ("enb.phy", "EnbPhy.build_dl_subframe"), ("enb.phy", "EnbPhy.receive_ul"),
                ("enb.phy", "EnbPhy._decode_pusch"))

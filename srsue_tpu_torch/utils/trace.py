@@ -6,7 +6,9 @@ the clock of the device trace: ``torch.profiler.record_function`` while a
 profiler records, and otherwise one shared no-op context, which adds no
 sync, no CUDA event and no allocation. Spans live in the profiler's memory
 and go out with its trace. ``SPANS`` names every span the receive path
-records; ``turbo.exit_check``, ``turbo.graph_capture`` and the frontends'
+records (``Phy.work`` records the frontend and control stages' spans
+too, without ``ue_dl.process`` and ``ue_dl.control``);
+``turbo.exit_check``, ``turbo.graph_capture`` and the frontends'
 ``frontend.graph_capture`` and ``frontend.graph_replay`` are also counters
 (spans counted per step).
 
@@ -28,10 +30,10 @@ import torch
 SPANS = (
     "ue_dl.process",         # UeDl.process, the whole call (root)
     "ue_dl.frontend",        # OFDM, CRS estimate(s), ZF or SFBC control combining, metrics
-    "ue_dl.control",         # PCFICH to the hits of every batch element
+    "ue_dl.control",         # PCFICH to the unpacked hits of every batch element
     "ue_dl.pcfich",          # control's child: PCFICH decode and the CFI read
     "ue_dl.blind_search",    # control's child: the batched search, its Viterbi launches
-    "ue_dl.blind_hits",      # control's child: hard bits and flags read, hits unpacked
+    "ue_dl.blind_hits",      # control's child: hard bits and flags read, hits selected
     "ue_dl.metrics",         # the channel metrics' host reads
     "ue_dl.pdsch",           # one grant's PDSCH chain
     "ue_dl.to_host",         # ue_dl.pdsch's child: payload, flags and iterations read

@@ -814,16 +814,18 @@ def _close(got, want) -> bool:
 
 
 def _frontend_call(which: str, cell, sf, iq, dev):
-    """The frontend `which` as its callers call it: ``UeDl._front_end`` on
-    the host array (B=1) or a card tensor (B=4), ``pdsch.equalized`` on a
-    card tensor with a codec of the subframe's grant."""
+    """The frontend `which` as its callers call it: ``UeDl.front_end`` on
+    the host array (B=1) or a card tensor (B=4), or on a card tensor of
+    one subframe [sf_len] as ``Phy.work`` passes it ("phy"),
+    ``pdsch.equalized`` on a card tensor with a codec of the subframe's
+    grant."""
     from srsue_tpu_torch.phy import pdsch
     from srsue_tpu_torch.phy.ue_dl import UeDl
 
-    if which == "ue_dl":
+    if which in ("ue_dl", "phy"):
         ue = UeDl(cell, device=dev)
-        x = iq if iq.ndim == 1 else torch.as_tensor(iq, device=dev)
-        return lambda: ue._front_end(x, sf)
+        x = iq if which == "ue_dl" and iq.ndim == 1 else torch.as_tensor(iq, device=dev)
+        return lambda: ue.front_end(x, sf)
     codec = PdschCodec(cell, ra.dl_grant(cell.n_prb, 9), 0x7B7B, sf, 2, device=dev)
     x = torch.as_tensor(iq, device=dev)
     return lambda: pdsch.equalized(cell, codec, sf, x)
@@ -831,7 +833,7 @@ def _frontend_call(which: str, cell, sf, iq, dev):
 
 @pytest.mark.parametrize("which,ports,batch", [
     ("equalized", 1, 1), ("equalized", 1, 4), ("ue_dl", 1, 1), ("ue_dl", 1, 4),
-    ("ue_dl", 2, 1), ("ue_dl", 2, 4)])
+    ("ue_dl", 2, 1), ("ue_dl", 2, 4), ("phy", 1, 1)])
 def test_frontend_replay_equals_eager(frontend_graphs, cuda_device, which, ports, batch):
     """A frontend's first call at a key runs eagerly, its second captures
     and replays, later ones replay; each replay equals the eager call within
@@ -928,9 +930,9 @@ def test_frontend_budget_drops_least_recently_used(frontend_graphs, cuda_device,
     cell, _, iq = _frontend_iq(1, 4)
     ue = UeDl(cell, device=cuda_device)
     x = torch.as_tensor(iq, device=cuda_device)
-    eager = {sf: frontend._clone(ue._front_end(x, sf)) for sf in (0, 1, 2, 3)}
+    eager = {sf: frontend._clone(ue.front_end(x, sf)) for sf in (0, 1, 2, 3)}
     for sf in (0, 1):  # a capture each: the first also holds what its stream keeps
-        ue._front_end(x, sf)
+        ue.front_end(x, sf)
     (one,) = [g.bytes for k, g in graphs.GRAPHS.keys.items() if g is not None and k[2] == 1]
     graphs.GRAPHS.keys.clear()
     monkeypatch.setattr(graphs, "memory", lambda dev: graphs.GraphCache.SHARE * (3 * one // 2))
@@ -940,9 +942,9 @@ def test_frontend_budget_drops_least_recently_used(frontend_graphs, cuda_device,
 
     for sf in (2, 3, 1):
         for _ in range(2):  # eager, then the capture
-            assert _close(ue._front_end(x, sf), eager[sf])
+            assert _close(ue.front_end(x, sf), eager[sf])
         assert held() == [sf]
     assert frontend_graphs["capture"] == 5
     for sf in (2, 1):
-        assert _close(ue._front_end(x, sf), eager[sf])  # 2 dropped: eager; 1 replays
+        assert _close(ue.front_end(x, sf), eager[sf])  # 2 dropped: eager; 1 replays
     assert held() == [1] and frontend_graphs == {"capture": 5, "replay": 6}

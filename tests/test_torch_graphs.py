@@ -138,7 +138,7 @@ def _old_sfbc_equalize_control(cell, grid, h0, h1, nvar):
 
 
 def _old_front_end(cell, iq, subframe):
-    """``UeDl._front_end`` as it was before its CUDA graph."""
+    """``UeDl.front_end`` as it was before its CUDA graph."""
     grid = ofdm.demodulate(cell, iq)
     h, nvar, rsrp = chest.estimate(cell, grid, subframe, port=0)
     hs = (h,) if cell.n_ports == 1 else (h, chest.estimate(cell, grid, subframe, port=1)[0])
@@ -173,7 +173,7 @@ def _flat(out):
 
 @pytest.mark.parametrize("ports,batch", [(1, 1), (1, 3), (2, 1), (2, 3)])
 def test_cpu_frontends_run_the_ops_they_ran_before(cache, ports, batch):
-    """On the CPU ``UeDl._front_end`` and ``pdsch.equalized`` compute what
+    """On the CPU ``UeDl.front_end`` and ``pdsch.equalized`` compute what
     they computed before the graphs, bit for bit, with the same operations
     in the same order, and enter nothing into the cache."""
     cell = Cell(n_prb=6, cell_id=42, n_ports=ports)
@@ -182,8 +182,8 @@ def test_cpu_frontends_run_the_ops_they_ran_before(cache, ports, batch):
     shape = (batch, cell.sf_len) if batch > 1 else (cell.sf_len,)
     iq = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
     ue = UeDl(cell, device="cpu")
-    ue._front_end(iq, sf)  # the tables cached, as in the old call's steady state
-    new, new_ops = _ops(lambda: ue._front_end(iq, sf))
+    ue.front_end(iq, sf)  # the tables cached, as in the old call's steady state
+    new, new_ops = _ops(lambda: ue.front_end(iq, sf))
     old, old_ops = _ops(lambda: _old_front_end(cell, torch.as_tensor(iq), sf))
     assert new_ops == old_ops and len(new_ops) > 100
     for a, b in zip(_flat(new), _flat(old), strict=True):

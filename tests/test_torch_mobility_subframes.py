@@ -25,8 +25,9 @@ from srsue_tpu_torch.enb.stack import EnbStack
 from srsue_tpu_torch.mac.rnti import P_RNTI
 from srsue_tpu_torch.phy import control, dci, enb_tx, phy, ue_ul_ctrl
 from srsue_tpu_torch.phy.pdsch import codec as pdsch_codec
+from srsue_tpu_torch.phy.ue_dl import UeDl
 from srsue_tpu_torch.ue import Ue
-from test_torch_ota_lockstep import DB_ATOL, noise, port_cell_of
+from test_torch_ota_lockstep import DB_ATOL, _hits, noise, port_cell_of
 
 N_PRB, SRC_PCI, NEW_PCI, ABSENT_PCI = 15, 123, 77, 200
 CFI = 2
@@ -102,17 +103,25 @@ def test_paging_dci_1c_found_at_the_paging_occasion_only(monkeypatch):
     occ = [t for t in range(t_drx * 10) if paging_occasion(t, ue_id, n_b_t=1.0, t_drx=t_drx)]
     assert len(occ) == 1
     logs = {"ref": [], "port": []}
-    for key, mod in (("ref", ref_control), ("port", control)):
-        orig = mod.pdcch_blind_decode
+    orig = ref_control.pdcch_blind_decode
 
-        def logged(*a, _orig=orig, _log=logs[key], **kw):
-            hits = _orig(*a, **kw)
-            if a[5] == P_RNTI:
-                _log.append((a[6], [(int(s), int(l), np.asarray(b, np.uint8).tobytes())
-                                    for s, l, b in hits]))
-            return hits
+    def logged(*a, **kw):  # the reference: one DCI size a call
+        hits = orig(*a, **kw)
+        if a[5] == P_RNTI:
+            logs["ref"].append((a[6], _hits(hits)))
+        return hits
 
-        monkeypatch.setattr(mod, "pdcch_blind_decode", logged)
+    search = UeDl.search
+
+    def searched(ue_dl, *a, **kw):  # the port's Phy.work: one format a call
+        hits = search(ue_dl, *a, **kw)
+        if a[4] == P_RNTI:
+            logs["port"].append((dci.size(ue_dl.cell.n_prb, *a[6]),
+                                 _hits((s, l, b) for _, s, l, b in hits[0])))
+        return hits
+
+    monkeypatch.setattr(ref_control, "pdcch_blind_decode", logged)
+    monkeypatch.setattr(UeDl, "search", searched)
     pcch = EnbStack().make_paging(imsi)
     rng = np.random.default_rng(1)
     found = {}

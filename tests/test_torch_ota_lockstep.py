@@ -31,8 +31,9 @@ from srsue_tpu.usim import usim as ref_usim
 from srsue_tpu_torch.enb import phy as enb_phy
 from srsue_tpu_torch.enb import stack
 from srsue_tpu_torch.phy import cell as port_cell
-from srsue_tpu_torch.phy import control
+from srsue_tpu_torch.phy import control, dci
 from srsue_tpu_torch.phy import phy
+from srsue_tpu_torch.phy.ue_dl import UeDl
 from srsue_tpu_torch.rrc import rrc
 from srsue_tpu_torch.ue import Ue
 from srsue_tpu_torch.usim import usim
@@ -99,21 +100,32 @@ def make_enb(pkg: str, cell, usim_cfg):
     return st, enb_phy.EnbPhy(port_cell_of(cell), st, device="cpu")
 
 
+def _hits(hits):
+    return [(int(s), int(l), np.asarray(b, np.uint8).tobytes()) for s, l, b in hits]
+
+
 class Decisions:
     """Logs, per TTI, what one UE's PHY decided: the CFI, every blind search's
     hits, every PHICH metric's sign, every TB decode (CRC, iterations) and
-    the HARQ-ACK counters."""
+    the HARQ-ACK counters. The reference's searches are its
+    ``control.pdcch_blind_decode`` calls, one DCI size each; the port's are
+    its ``UeDl.search`` calls, which ``Phy.work`` makes one format each."""
 
     def __init__(self, mp, ctl, p, ue):
         self.log: list = []
         self.p, self.ue = p, ue
         for fn, entry in (
                 ("pcfich_decode", lambda r, a: ("cfi", int(np.asarray(r[0])))),
-                ("pdcch_blind_decode", lambda r, a: ("dci", a[5], a[6], [
-                    (int(s), int(l), np.asarray(b, np.uint8).tobytes()) for s, l, b in r])),
                 ("phich_decode", lambda r, a: ("phich", a[3], a[4],
                                                bool(float(np.asarray(r)) > 0)))):
             self._wrap(mp, ctl, fn, entry)
+        if ctl is control:
+            self._wrap(mp, UeDl, "search", lambda r, a: (
+                "dci", a[5], dci.size(a[0].cell.n_prb, *a[7]),
+                _hits((s, l, b) for _, s, l, b in r[0])))
+        else:
+            self._wrap(mp, ctl, "pdcch_blind_decode",
+                       lambda r, a: ("dci", a[5], a[6], _hits(r)))
         tb = ue.mac.tb_decoded
 
         def tb_decoded(pid, codec, softbuffers, rnti_type="CRNTI"):

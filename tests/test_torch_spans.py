@@ -1,7 +1,7 @@
 """The port's spans (``utils/trace.py``'s ``annotate`` and ``SPANS``) on the
 CPU: the span tree of ``UeDl.process`` on 6 PRB TM1 and TM2 subframes from
 the port's own transmitter (on the card too, with the turbo loop's capture as
-CUDA graphs), the turbo loops' iteration and exit-check counts, the shared no-op with no profiler running, ``shard_decode``'s
+CUDA graphs), the same stages' spans in the UE's ``Phy.work``, the turbo loops' iteration and exit-check counts, the shared no-op with no profiler running, ``shard_decode``'s
 exchange on each of two gloo ranks, and results that do not change while
 spans record. Imports no JAX: the spawned ranks import this module."""
 
@@ -17,6 +17,7 @@ from srsue_tpu_torch.parallel import mesh
 from srsue_tpu_torch.phy import control, dci, enb_tx, pdsch, pusch, turbo
 from srsue_tpu_torch.phy.cell import Cell, UlGrant
 from srsue_tpu_torch.phy.pdsch import PdschCodec
+from srsue_tpu_torch.phy.phy import Phy
 from srsue_tpu_torch.phy.ra import dl_grant
 from srsue_tpu_torch.phy.ue_dl import UeDl
 from srsue_tpu_torch.utils import graphs, trace
@@ -114,6 +115,28 @@ def test_process_span_tree(tm, tmp_path):
             for _, first, count, *_ in codec.groups]
     assert names.count("turbo.iteration") == sum(runs)
     assert names.count("turbo.exit_check") == sum(min(r, n - 1) for r in runs)
+
+
+@pytest.mark.parametrize("tm", ["tm1", "tm2"])
+def test_phy_work_runs_the_ue_dl_stages(tm, tmp_path):
+    """The UE's ``Phy.work`` on one subframe with a DCI 1A for its C-RNTI
+    runs ``UeDl``'s stages: the front end and the PCFICH once, one blind
+    search of format 0/1A and one of format 1, and the DCI's grant goes to
+    the PDSCH decode; it is no ``UeDl.process``."""
+    cell = _cell(tm)
+    p = Phy(cell, device="cpu")
+    p.crnti = CFG["rnti"]
+    grants = []
+    decode = p._decode_dlsch
+    p._decode_dlsch = lambda *a: (grants.append(a[4]), decode(*a))
+    _, events = _recorded(lambda: p.work(CFG["subframe"], _iq(tm, batch=1)[0].numpy()),
+                          tmp_path)
+    names = [e["name"] for e in events]
+    assert {"ue_dl.frontend", "ue_dl.pcfich", "ue_dl.blind_search", "ue_dl.blind_hits"} \
+        <= set(names) and "ue_dl.process" not in names
+    assert names.count("ue_dl.frontend") == names.count("ue_dl.pcfich") == 1
+    assert names.count("ue_dl.blind_search") == names.count("ue_dl.blind_hits") == 2
+    assert grants == [dl_grant(cell.n_prb, CFG["mcs"])]
 
 
 @pytest.mark.parametrize("tm", ["tm1", "tm2"])

@@ -139,3 +139,25 @@ def test_decode_pdsch_and_two_ports():
     assert two.cell.n_ports == 2  # a 2-port cell takes the TM2 chain
     with pytest.raises(ValueError, match="4-port"):
         UeDl(_mine(Cell(n_prb=15, cell_id=150, n_ports=4)), device="cpu")
+
+
+@pytest.mark.parametrize("n_prb", [6, 15])
+def test_empty_search_space_gives_no_hits(n_prb):
+    """At CFI 1 a 6 or 15 PRB carrier has 2 CCEs: the common space (L=4
+    and 8) holds no candidate. ``UeDl.search`` then finds nothing for the
+    SI-RNTI in either format and launches no search, and ``process``
+    returns no grant (the OTA tests' 15 PRB cell reaches this in
+    ``Phy.work``)."""
+    cell, sf = Cell(n_prb=n_prb, cell_id=9), 1
+    n_cce, _ = control.pdcch_geometry(cell, 1)
+    assert control.search_space_candidates(n_cce, SI_RNTI, sf, ue_specific=False) == []
+    iq, _ = _waveforms(cell, sf, 1, [], [], 20.0, 6, batch=2)
+    ue = _port_ue(cell)
+    front = ue.front_end(iq, sf)
+    assert ue.cfi(front.g_eq, front.nv_eff, sf) == 1
+    formats = ("0_1a", "1c")
+    assert ue.search(front.g_eq, front.nv_eff, sf, 1, SI_RNTI, False, formats) == [[], []]
+    assert ue.search(front.g_eq[0], front.nv_eff[0], sf, 1, SI_RNTI, False, formats) == [[]]
+    res = ue.process(iq, sf, SI_RNTI, ue_specific=False, formats=formats)
+    assert res.cfi == 1 and res.grants == [] and res.payload is None
+    assert res.hits_per_elem == [[], []] and res.decoded == []
