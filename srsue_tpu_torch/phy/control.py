@@ -437,20 +437,27 @@ def pdcch_blind_batch(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,
     return hard[..., :dci_len], syn.sum(-1) == 0
 
 
-def blind_hits(cands, hard: np.ndarray, ok: np.ndarray, dci_len: int):
-    """Host-side hit selection for ONE batch element of
-    ``pdcch_blind_batch`` output: list of (start_cce, L, payload_bits),
-    deduplicated by payload (overlapping aggregation levels decode the
-    same circular-buffer codeword; the first, smallest-L hit is kept)."""
-    hits = []
+def blind_hits(cands, hard: np.ndarray, ok: np.ndarray, dci_len: int) -> list:
+    """Host-side hit selection over ``pdcch_blind_batch``'s output, hard
+    [..., n_cand, >= dci_len] and ok [..., n_cand]: each element's list of
+    (start_cce, L, payload_bits) in candidate order, or one such list for
+    unbatched arrays. A candidate is a hit when its CRC passed and no
+    earlier candidate of its element that passed carries the same payload
+    (overlapping aggregation levels decode the same circular-buffer
+    codeword; the first, smallest-L hit is kept). One ``np.nonzero`` finds
+    the passes of the whole batch in (element, candidate) order, and only
+    they are walked."""
+    n_cand = len(cands)
+    bits = np.asarray(hard)[..., :dci_len].reshape(-1, n_cand, dci_len)
+    passed = np.nonzero(np.asarray(ok, bool).reshape(-1, n_cand))
+    out: list[list] = [[] for _ in range(len(bits))]
     seen = set()
-    for (start, l), bits, good in zip(cands, hard, ok):
-        if good:
-            key = bits[:dci_len].tobytes()
-            if key not in seen:
-                seen.add(key)
-                hits.append((start, l, bits[:dci_len]))
-    return hits
+    for e, c in zip(*(i.tolist() for i in passed)):
+        key = (e, bits[e, c].tobytes())
+        if key not in seen:
+            seen.add(key)
+            out[e].append((*cands[c], bits[e, c]))
+    return out if np.ndim(ok) > 1 else out[0]
 
 
 def pdcch_blind_decode(cell: Cell, grid_eq: torch.Tensor, nv_eff, subframe: int,

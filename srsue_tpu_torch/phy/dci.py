@@ -1,13 +1,15 @@
 """DCI formats 0, 1A, 1 and 1C: sizes, RIV, pack/unpack and grant
 conversion (36.212 5.3.3, 36.213 7.1). Counterpart of
-``srsue_tpu/phy/dci.py`` on the port's ``ra``; host numpy, since a DCI
-payload is a handful of bits packed or parsed per grant. Formats 0 and 1A
-are padded to one size, so one blind decode covers both (the flag bit
-tells them apart).
+``srsue_tpu/phy/dci.py`` on the port's ``ra``; host numpy: a payload is
+packed per grant, and the payloads a search found are read together
+(``unpack_rows``). Formats 0 and 1A are padded to one size, so one blind
+decode covers both (the flag bit tells them apart).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
@@ -39,19 +41,6 @@ def riv_decode(n_rb: int, riv: int) -> tuple[int, int]:
 
 def _put(bits: list[int], val: int, n: int) -> None:
     bits.extend((val >> i) & 1 for i in range(n - 1, -1, -1))
-
-
-class _Reader:
-    def __init__(self, bits: np.ndarray):
-        self.b = np.asarray(bits).astype(np.int64)
-        self.i = 0
-
-    def take(self, n: int) -> int:
-        v = 0
-        for _ in range(n):
-            v = (v << 1) | int(self.b[self.i])
-            self.i += 1
-        return v
 
 
 @dataclass(frozen=True)
@@ -147,32 +136,6 @@ def pack_0(n_rb: int, d: Dci0) -> np.ndarray:
     return out
 
 
-def unpack_0_1a(n_rb: int, bits: np.ndarray):
-    r = _Reader(bits)
-    flag = r.take(1)
-    if flag:
-        distributed = bool(r.take(1))
-        return Dci1A(
-            riv=r.take(_riv_bits(n_rb)),
-            mcs=r.take(5),
-            harq_pid=r.take(3),
-            ndi=bool(r.take(1)),
-            rv=r.take(2),
-            tpc=r.take(2),
-            distributed=distributed,
-        )
-    hopping = bool(r.take(1))
-    return Dci0(
-        riv=r.take(_riv_bits(n_rb)),
-        mcs=r.take(5),
-        ndi=bool(r.take(1)),
-        tpc=r.take(2),
-        dmrs_cshift=r.take(3),
-        cqi_request=bool(r.take(1)),
-        hopping=hopping,
-    )
-
-
 def pack_1(n_rb: int, d: Dci1) -> np.ndarray:
     nbg = math.ceil(n_rb / rbg_size(n_rb))
     bits: list[int] = []
@@ -185,19 +148,6 @@ def pack_1(n_rb: int, d: Dci1) -> np.ndarray:
     out = np.zeros(size_1(n_rb), np.uint8)
     out[: len(bits)] = bits
     return out
-
-
-def unpack_1(n_rb: int, bits: np.ndarray) -> Dci1:
-    nbg = math.ceil(n_rb / rbg_size(n_rb))
-    r = _Reader(bits)
-    return Dci1(
-        rbg_bitmap=r.take(nbg),
-        mcs=r.take(5),
-        harq_pid=r.take(3),
-        ndi=bool(r.take(1)),
-        rv=r.take(2),
-        tpc=r.take(2),
-    )
 
 
 @dataclass(frozen=True)
@@ -239,15 +189,6 @@ def pack_1c(n_rb: int, d: Dci1C) -> np.ndarray:
     out = np.zeros(size_1c(n_rb), np.uint8)
     out[: len(bits)] = bits
     return out
-
-
-def unpack_1c(n_rb: int, bits: np.ndarray) -> Dci1C:
-    r = _Reader(bits)
-    gap = r.take(1) if n_rb >= 50 else 0
-    step = _n_step_1c(n_rb)
-    n_vrb = n_rb // step
-    riv = r.take(math.ceil(math.log2(n_vrb * (n_vrb + 1) / 2)))
-    return Dci1C(riv=riv, tbs_idx=r.take(5), gap=gap)
 
 
 def dci1c_to_grant(cell: Cell, d: Dci1C) -> DlGrant:
@@ -346,7 +287,6 @@ def dci1_to_grant(cell: Cell, d: Dci1) -> DlGrant:
 # ---------------------------------------------------------------------------
 
 _SIZE = {"0_1a": size_0_1a, "1": size_1, "1c": size_1c}
-_UNPACK = {"0_1a": unpack_0_1a, "1": unpack_1, "1c": unpack_1c}
 _TO_DL_GRANT = {Dci1A: dci1a_to_grant, Dci1: dci1_to_grant, Dci1C: dci1c_to_grant}
 
 
@@ -356,9 +296,68 @@ def size(n_rb: int, fmt: str) -> int:
     return _SIZE[fmt](n_rb)
 
 
+def _fields(n_rb: int, fmt: str) -> tuple:
+    """The DCI types a searched format carries, in the order of the 0/1A
+    flag's value, each with its fields (name, bits) in the order sent, most
+    significant bit first; no type keeps the flag."""
+    riv = ("riv", _riv_bits(n_rb))
+    if fmt == "0_1a":
+        return ((Dci0, (("flag", 1), ("hopping", 1), riv, ("mcs", 5), ("ndi", 1), ("tpc", 2),
+                        ("dmrs_cshift", 3), ("cqi_request", 1))),
+                (Dci1A, (("flag", 1), ("distributed", 1), riv, ("mcs", 5), ("harq_pid", 3),
+                         ("ndi", 1), ("rv", 2), ("tpc", 2))))
+    if fmt == "1":
+        nbg = math.ceil(n_rb / rbg_size(n_rb))
+        return ((Dci1, (("rbg_bitmap", nbg), ("mcs", 5), ("harq_pid", 3), ("ndi", 1), ("rv", 2),
+                        ("tpc", 2))),)
+    gap = (("gap", 1),) if n_rb >= 50 else ()
+    return ((Dci1C, gap + (("riv", _riv_bits(n_rb // _n_step_1c(n_rb))), ("tbs_idx", 5))),)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(n_rb: int, fmt: str) -> tuple:
+    """(weights, types) of a searched format. A row of payload bits times
+    the weights [size, columns] int64 gives in column 0 the row's index in
+    `types` (the 0/1A flag; 0 in the other formats), then every field of
+    each type as an integer, in its dataclass's order (0 for a field the
+    format does not send). types: (type, its first and past-last column,
+    the positions of its bool fields among its columns)."""
+    width = size(n_rb, fmt)
+    cols = [np.zeros(width, np.int64)]
+    cols[0][0] = fmt == "0_1a"
+    types = []
+    for cls, fields in _fields(n_rb, fmt):
+        sent, pos = {}, 0
+        for name, n in fields:
+            sent[name] = np.zeros(width, np.int64)
+            sent[name][pos: pos + n] = 1 << np.arange(n - 1, -1, -1)
+            pos += n
+        own = dataclasses.fields(cls)
+        types.append((cls, len(cols), len(cols) + len(own),
+                      tuple(j for j, f in enumerate(own) if f.type == "bool")))
+        cols += [sent.get(f.name, np.zeros(width, np.int64)) for f in own]
+    return np.stack(cols, 1), tuple(types)
+
+
+def unpack_rows(n_rb: int, fmt: str, bits) -> list:
+    """The DCIs of a searched format's payload rows, bits [n, size], in row
+    order. Every field of every row is read at once, as one product of the
+    rows with per-field bit weights; in format 0/1A the flag (bit 0) makes
+    a row a Dci1A or a Dci0."""
+    w, types = _layout(n_rb, fmt)
+    out = []
+    for v in (np.asarray(bits, np.int64).reshape(-1, len(w)) @ w).tolist():
+        cls, first, last, flags = types[v[0]]
+        args = v[first:last]
+        for j in flags:
+            args[j] = args[j] == 1
+        out.append(cls(*args))
+    return out
+
+
 def unpack(n_rb: int, fmt: str, bits: np.ndarray):
     """The DCI of a searched format's payload bits."""
-    return _UNPACK[fmt](n_rb, bits)
+    return unpack_rows(n_rb, fmt, np.asarray(bits)[None])[0]
 
 
 def to_dl_grant(cell: Cell, d) -> DlGrant | None:

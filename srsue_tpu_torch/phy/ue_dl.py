@@ -125,8 +125,7 @@ class UeDl:
         in ``control.blind_hits``' order. One batched search (one Viterbi
         launch) per format over every candidate and element, all launched
         before the first host read. An empty search space gives no hits."""
-        batched = g_eq.ndim == 3
-        hits: list[list] = [[] for _ in range(g_eq.shape[0] if batched else 1)]
+        hits: list[list] = [[] for _ in range(g_eq.shape[0] if g_eq.ndim == 3 else 1)]
         n_prb = self.cell.n_prb
         with annotate("ue_dl.blind_search"):
             n_cce, _ = control.pdcch_geometry(self.cell, cfi)
@@ -136,13 +135,12 @@ class UeDl:
                    for f in (formats if cands else ())}
         with annotate("ue_dl.blind_hits"):
             for f, (hard, ok) in raw.items():
-                hard, ok = to_host(hard), to_host(ok)
-                if not batched:
-                    hard, ok = hard[None], ok[None]
-                n = dci.size(n_prb, f)
-                for elem, h, o in zip(hits, hard, ok, strict=True):
-                    for start, l, bits in control.blind_hits(cands, h, o, n):
-                        elem.append((f, start, l, bits))
+                # one read a format: the CRC flags ride as the payloads' last column
+                both = to_host(torch.cat([hard, ok[..., None]], -1))
+                both = both.reshape((-1,) + both.shape[-2:])  # an unbatched grid: a batch of one
+                found = control.blind_hits(cands, both[..., :-1], both[..., -1], hard.shape[-1])
+                for elem, elem_hits in zip(hits, found, strict=True):
+                    elem.extend((f, start, l, bits) for start, l, bits in elem_hits)
         return hits
 
     # --- stage 3: grant-known PDSCH chain --------------------------------
@@ -189,8 +187,12 @@ class UeDl:
                 cfi = self.cfi(front.g_eq, front.nv_eff, subframe)
                 hits = self.search(front.g_eq, front.nv_eff, subframe, cfi, rnti, ue_specific,
                                    tuple(formats))
-                hits_per_elem = [[(f, dci.unpack(n_prb, f, bits)) for f, _, _, bits in elem]
-                                 for elem in hits]
+                with annotate("ue_dl.dci"):
+                    # one unpack a format over the batch, dealt back in the hits' order
+                    dcis = {f: iter(dci.unpack_rows(n_prb, f, [b for elem in hits
+                                                               for g, _, _, b in elem if g == f]))
+                            for f in formats}
+                    hits_per_elem = [[(f, next(dcis[f])) for f, *_ in elem] for elem in hits]
 
             grants = [g for g in (dci.to_dl_grant(self.cell, d) for _, d in hits_per_elem[0])
                       if g is not None]

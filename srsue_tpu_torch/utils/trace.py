@@ -7,7 +7,7 @@ profiler records, and otherwise one shared no-op context, which adds no
 sync, no CUDA event and no allocation. Spans live in the profiler's memory
 and go out with its trace. ``SPANS`` names every span the receive path
 records (``Phy.work`` records the frontend and control stages' spans
-too, without ``ue_dl.process`` and ``ue_dl.control``);
+too, without ``ue_dl.process``, ``ue_dl.control`` and ``ue_dl.dci``);
 ``turbo.exit_check``, ``turbo.graph_capture`` and the frontends'
 ``frontend.graph_capture`` and ``frontend.graph_replay`` are also counters
 (spans counted per step).
@@ -34,6 +34,7 @@ SPANS = (
     "ue_dl.pcfich",          # control's child: PCFICH decode and the CFI read
     "ue_dl.blind_search",    # control's child: the batched search, its Viterbi launches
     "ue_dl.blind_hits",      # control's child: hard bits and flags read, hits selected
+    "ue_dl.dci",             # control's child: every hit's DCI unpacked, one call a format
     "ue_dl.metrics",         # the channel metrics' host reads
     "ue_dl.pdsch",           # one grant's PDSCH chain
     "ue_dl.to_host",         # ue_dl.pdsch's child: payload, flags and iterations read

@@ -18,7 +18,7 @@ from srsue_tpu.phy import equalize as ref_eq
 from srsue_tpu.phy import ofdm as ref_ofdm
 from srsue_tpu.phy import ratematch as ref_rm
 from srsue_tpu.phy.cell import Cell as RefCell
-from srsue_tpu_torch.phy import chest, control, equalize, ofdm, ratematch
+from srsue_tpu_torch.phy import chest, control, dci, equalize, ofdm, ratematch
 from srsue_tpu_torch.phy.cell import Cell
 
 BANDWIDTHS = (6, 15, 25, 50, 75, 100)
@@ -162,6 +162,62 @@ def test_batch_shaped_noise_broadcasts():
                     control.pdcch_blind_batch(cell, ge, grid_nv, sf, cfi, rnti, dci_len)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert control.pdcch_blind_batch(cell, ge, nv, sf, cfi, rnti, dci_len)[1][:, 0].all()
+
+
+def _hits_one_element(cands, hard, ok, dci_len):
+    """The per-element hit selection the batched one replaced: candidates in
+    order, a CRC pass kept unless an earlier kept hit has its payload."""
+    hits, seen = [], set()
+    for (start, l), bits, good in zip(cands, hard, ok):
+        if good:
+            key = bits[:dci_len].tobytes()
+            if key not in seen:
+                seen.add(key)
+                hits.append((start, l, bits[:dci_len]))
+    return hits
+
+
+# name: (lead shape, payload bits, distinct payloads an element, CRC pass rate)
+HIT_CASES = {
+    "duplicate_levels": ((16,), 27, 3, 0.7),
+    "none_good": ((8,), 27, 16, 0.0),
+    "all_good": ((8,), 27, 2, 1.0),
+    "batch_of_one": ((1,), 27, 4, 0.5),
+    "unbatched": ((), 27, 4, 0.5),
+    **{f"{fmt}_{n_prb}prb": ((6,), dci.size(n_prb, fmt), 4, 0.5)
+       for fmt in ("0_1a", "1", "1c") for n_prb in (6, 25, 100)},
+}
+
+
+@pytest.mark.parametrize("name", list(HIT_CASES))
+def test_blind_hits_batched_matches_per_element(name):
+    """``blind_hits`` over a whole batch gives each element what the
+    per-element loop gives: the same candidates, payloads and order. Each
+    element draws its candidates' payloads from a few, so the same payload
+    passes at several aggregation levels."""
+    lead, n, n_distinct, p_ok = HIT_CASES[name]
+    cell = Cell(n_prb=25, cell_id=1)
+    n_cce, _ = control.pdcch_geometry(cell, 3)
+    cands = control.search_space_candidates(n_cce, 0x1234, 6)
+    rng = np.random.default_rng(list(HIT_CASES).index(name))
+    flat = int(np.prod(lead))
+    pool = rng.integers(0, 2, (flat, n_distinct, n), np.uint8)
+    hard = pool[np.arange(flat)[:, None], rng.integers(0, n_distinct, (flat, len(cands)))]
+    ok = rng.random((flat, len(cands))) < p_ok
+    hard, ok = hard.reshape(lead + hard.shape[1:]), ok.reshape(lead + ok.shape[1:])
+    got = control.blind_hits(cands, hard, ok, n)
+    want = [_hits_one_element(cands, h, o, n)
+            for h, o in zip(hard.reshape(-1, len(cands), n), ok.reshape(-1, len(cands)))]
+    if not lead:  # one element's list
+        got = [got]
+    assert len(got) == len(want) == flat
+    for g, w in zip(got, want):
+        assert [(s, l) for s, l, _ in g] == [(s, l) for s, l, _ in w]
+        assert [b.tolist() for *_, b in g] == [b.tolist() for *_, b in w]
+    n_hits = sum(map(len, want))
+    assert (n_hits == 0) == (p_ok == 0.0)
+    if name == "all_good":
+        assert all(len(w) == n_distinct for w in want)
 
 
 def test_empty_search_space_raises():

@@ -117,7 +117,9 @@ def test_dl_assignments_carry_tpc_minus_1_db_in_both_packages(pkg, monkeypatch):
     monkeypatch.setattr(ctl, "pdcch_map", lambda c, g, sf, cfi, bits, *a: sent.append(bits))
     grids = [np.zeros((cell.n_sym_sf, cell.n_sc), np.complex64)]
     enb._map_dlsch_raw(grids, 3, b"\x00" * 8, enb.crnti, 4, 6, ndi=True, rv=0, watch_ack=True)
-    d = mods["phy.dci"].unpack_0_1a(cell.n_prb, np.asarray(sent[0], np.uint8))
+    bits = np.asarray(sent[0], np.uint8)
+    d = (mods["phy.dci"].unpack(cell.n_prb, "0_1a", bits) if pkg == "srsue_tpu_torch"
+         else mods["phy.dci"].unpack_0_1a(cell.n_prb, bits))
     assert type(d).__name__ == "Dci1A" and d.tpc == 0
     ue_phy = mods["phy.phy"].Phy(cell, **kw)
     p0 = ue_phy.ul_power.pucch_power_dbm(0.0)

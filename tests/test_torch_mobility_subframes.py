@@ -142,7 +142,7 @@ def test_paging_dci_1c_found_at_the_paging_occasion_only(monkeypatch):
         hits_1c = searches[1][1]
         assert searches[0][1] == [] and len(hits_1c) == 1
         bits = np.frombuffer(hits_1c[0][2], np.uint8)
-        assert dci.unpack_1c(N_PRB, bits) == d
+        assert dci.unpack(N_PRB, "1c", bits) == d
     assert rue.rrc.paged and pue.rrc.paged and pue.nas.paging_pending
 
 

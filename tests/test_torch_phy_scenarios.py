@@ -43,7 +43,7 @@ def test_dci1c_pack_unpack(n_rb):
     assert len(bits) == dci.size_1c(n_rb) == ref_dci.size_1c(n_rb)
     np.testing.assert_array_equal(bits, ref_dci.pack_1c(n_rb, ref_dci.Dci1C(riv=7, tbs_idx=17,
                                                                               gap=0)))
-    assert dci.unpack_1c(n_rb, bits) == d
+    assert dci.unpack(n_rb, "1c", bits) == d
 
 
 def test_dci1c_grant():
@@ -82,7 +82,7 @@ def test_dci1c_blind_decode_si_equals_the_reference():
     rg_eq, rnv = ref_equalize.zf(rg, rh, rnvar)
     ref_hits = ref_control.pdcch_blind_decode(rcell, rg_eq, rnv, subframe, cfi, 0xFFFF,
                                               ref_dci.size_1c(50), ue_specific=False)
-    assert hits and dci.unpack_1c(50, hits[0][2]) == d
+    assert hits and dci.unpack(50, "1c", hits[0][2]) == d
 
     def key(hs):
         return [(int(s), int(l), np.asarray(b, np.uint8).tobytes()) for s, l, b in hs]

@@ -32,6 +32,7 @@ PORTS = {"tm1": 1, "tm2": 2}
 PARENT = {"ue_dl.process": None, "ue_dl.frontend": "ue_dl.process",
           "ue_dl.control": "ue_dl.process", "ue_dl.pcfich": "ue_dl.control",
           "ue_dl.blind_search": "ue_dl.control", "ue_dl.blind_hits": "ue_dl.control",
+          "ue_dl.dci": "ue_dl.control",
           "ue_dl.metrics": "ue_dl.process", "ue_dl.pdsch": "ue_dl.process",
           "ue_dl.to_host": "ue_dl.pdsch", "pdsch.demap_dematch": "ue_dl.pdsch",
           "pdsch.turbo": "ue_dl.pdsch", "turbo.iteration": "pdsch.turbo",
@@ -96,7 +97,7 @@ def _process(tm: str, iq: torch.Tensor):
 
 @pytest.mark.parametrize("tm", ["tm1", "tm2"])
 def test_process_span_tree(tm, tmp_path):
-    """Every stage of one call under its root, the control layer's three
+    """Every stage of one call under its root, the control layer's four
     children inside ``ue_dl.control``; one exit check after each iteration
     but the last (the one that passes where the loop stopped early)."""
     res, events = _recorded(lambda: _process(tm, _iq(tm)), tmp_path)
@@ -137,6 +138,21 @@ def test_phy_work_runs_the_ue_dl_stages(tm, tmp_path):
     assert names.count("ue_dl.frontend") == names.count("ue_dl.pcfich") == 1
     assert names.count("ue_dl.blind_search") == names.count("ue_dl.blind_hits") == 2
     assert grants == [dl_grant(cell.n_prb, CFG["mcs"])]
+
+
+def test_dci_span_inside_control_and_silent_without_a_profiler(tmp_path, monkeypatch):
+    """``ue_dl.dci``, the batch's DCI unpack, is a span of SPANS, recorded
+    once a call inside ``ue_dl.control``; with no profiler running no span
+    opens."""
+    assert "ue_dl.dci" in trace.SPANS
+    iq = _iq("tm1")
+    _, events = _recorded(lambda: _process("tm1", iq), tmp_path)
+    dci_spans = [e for e in events if e["name"] == "ue_dl.dci"]
+    assert len(dci_spans) == 1 and _parent(dci_spans[0], events) == "ue_dl.control"
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: opened.append(name))
+    assert _process("tm1", iq).hits_per_elem[0]
+    assert opened == []
 
 
 @pytest.mark.parametrize("tm", ["tm1", "tm2"])

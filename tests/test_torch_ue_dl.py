@@ -30,17 +30,18 @@ def _port_ue(cell):
     return UeDl(_mine(cell), device="cpu")
 
 
-def _waveforms(cell, sf, cfi, dcis, pdsch, snr_db, seed, batch=1):
+def _waveforms(cell, sf, cfi, dcis, pdsch, snr_db, seed, batch=1, per_elem=None):
     """`batch` noisy subframes: CRS, PCFICH, each (dci_bits, rnti, start, L)
-    of `dcis`, and the PDSCH of each (grant, rnti) of `pdsch` with a random
-    payload per subframe. Returns (iq, payloads [per pdsch entry][batch])."""
+    of `dcis` and of the subframe's own list in `per_elem` (one a subframe),
+    and the PDSCH of each (grant, rnti) of `pdsch` with a random payload per
+    subframe. Returns (iq, payloads [per pdsch entry][batch])."""
     rng = np.random.default_rng(seed)
     tds, pays = [], [[] for _ in pdsch]
-    for _ in range(batch):
+    for b in range(batch):
         grid = enb_tx.empty_grid(cell)
         enb_tx.add_crs(cell, grid, sf, 0)
         control.pcfich_map(cell, grid, sf, cfi)
-        for bits, rnti, start, l_aggr in dcis:
+        for bits, rnti, start, l_aggr in dcis + (per_elem[b] if per_elem else []):
             control.pdcch_map(cell, grid, sf, cfi, bits, rnti, start, l_aggr)
         for j, (grant, rnti) in enumerate(pdsch):
             codec = PdschCodec(cell, grant, rnti, sf, cfi)
@@ -123,6 +124,42 @@ def test_process_formats_match_reference():
     _assert_same(got, RefUeDl(cell).process(iq, sf, SI_RNTI, ue_specific=False,
                                             formats=("0_1a", "1c")))
     assert got.grants[0].tbs == grant.tbs and got.tb_ok.all()
+    np.testing.assert_array_equal(got.payload, pays)
+
+
+def test_process_control_differing_by_element_matches_reference():
+    """A batch of 4 whose control differs by element, formats 0/1A and 1: a
+    1A on one candidate; a DCI 0 and a 1A on two; no PDCCH; a format 1.
+    Element 0's grant is decoded over the batch, its PDSCH in every
+    subframe."""
+    cfi = 2
+    cell = Cell(n_prb=25, cell_id=61)
+    crnti, sf = 0x3C21, 7
+    n_cce, _ = control.pdcch_geometry(cell, cfi)
+    cands = control.search_space_candidates(n_cce, crnti, sf)
+    first = cands[0]
+    apart = next(c for c in cands if c[0] >= first[0] + first[1])  # no CCE of `first`
+    d1a = dci.Dci1A(riv=dci.riv_encode(25, 0, 25), mcs=10, harq_pid=2, ndi=True, rv=0, tpc=1)
+    d1a_b = dci.Dci1A(riv=dci.riv_encode(25, 5, 10), mcs=4, harq_pid=5, ndi=False, rv=2,
+                      tpc=3, distributed=True)
+    d0 = dci.Dci0(riv=dci.riv_encode(25, 2, 8), mcs=12, ndi=True, tpc=2, dmrs_cshift=3,
+                  cqi_request=True)
+    nbg = -(-cell.n_prb // dci.rbg_size(cell.n_prb))
+    d1 = dci.Dci1(rbg_bitmap=(1 << nbg) - 2, mcs=7, harq_pid=1, ndi=False, rv=1, tpc=0)
+    per_elem = [[(dci.pack_1a(25, d1a), crnti, *first)],
+                [(dci.pack_0(25, d0), crnti, *first), (dci.pack_1a(25, d1a_b), crnti, *apart)],
+                [],
+                [(dci.pack_1(25, d1), crnti, *apart)]]
+    grant = dci.dci1a_to_grant(cell, d1a)
+    iq, (pays,) = _waveforms(cell, sf, cfi, [], [(grant, crnti)], 20.0, 8, batch=4,
+                             per_elem=per_elem)
+    formats = ("0_1a", "1")
+    got = _port_ue(cell).process(iq, sf, crnti, formats=formats)
+    _assert_same(got, RefUeDl(cell).process(iq, sf, crnti, formats=formats))
+    assert ([[(f, _astuple(d)) for f, d in e] for e in got.hits_per_elem]
+            == [[("0_1a", _astuple(d1a))], [("0_1a", _astuple(d0)), ("0_1a", _astuple(d1a_b))],
+                [], [("1", _astuple(d1))]])
+    assert got.tb_ok.all()
     np.testing.assert_array_equal(got.payload, pays)
 
 
