@@ -78,6 +78,13 @@ Phases, each of which fails the run:
      UL HARQ loop (UlHarq, PHICH): rv0 NACK, then rv0 + rv2 combined ACK;
      PHICH ACK and NACK on every group and sequence on 1 and 2 ports, card =
      CPU; every r2max launch at a shape phase 2 held against the twin;
+     then a loaded subframe (PuschCell over the seven UEs of perfbench's
+     lte20_pusch_7ue_mixed: 25/25/15/15/6/6/4 PRB, 16QAM and QPSK, each
+     with its own DMRS cyclic shift, TB, ACK, two with CQI) at B=256 and 26
+     dB: every UE's TB bit-exact, its CQI and ACK found, one demap launch a
+     UE, one turbo.decode a K across the UEs (r2max at the four K-groups'
+     shapes, each held in phase 2), card = CPU on 4 subframes (payload,
+     CRC, iterations, CQI, ACK), ms/batch;
  15. the whole UE over the air (Ue, Phy, the MAC and the upper layers against
      the port's eNB emulator EnbPhy, on a 20 MHz cell 123 with complex AWGN
      of amplitude 0.01 while attaching): (a) RACH -> RAR -> Msg3 -> Msg4 ->
@@ -155,7 +162,9 @@ Phases, each of which fails the run:
      grants (4 and 3 repeats), the UE over the air's 100 PRB MCS 6 grant at
      B=1 (its blocks split over a cluster of CTAs), phase 14's full-width
      PUSCH at B=256, the 50 PRB MCS 20 grant with ACK + 4 CQI bits
-     (erasures), and a seeded table for any other (form, qm, R) that phases
+     (erasures), phase 14's loaded subframe at B=256 (its 4 and 6 PRB QPSK
+     and 15 and 25 PRB 16QAM allocations, the 25 PRB's CQI LLRs), and a
+     seeded table for any other (form, qm, R) that phases
      3-18 launched at; each compared call one launch, every launch of
      phases 3-18 at a (form, qm, R) held (kernels.demap.shapes), and none
      of the gather variant; the tiled kernel and the gather variant timed
@@ -662,6 +671,11 @@ def zero_all(bcjr, viterbi) -> None:
     viterbi.shapes.clear()
 
 
+def blind_stats(rx, out: dict, clean) -> dict:
+    """bench.py's statistics of one blind-chain call's outputs, as floats."""
+    return {k: float(v) for k, v in rx.tb_stats(out, clean.payloads, clean.cfi).items()}
+
+
 def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
     """The blind control + data chain (rx.make_rx) at B=256 and 26 dB with
     each equalizer (CRC early exit, r2max) and in the forced form: every
@@ -676,8 +690,7 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
     iq = torch.as_tensor(noisy, device=dev)
     print(f"phase 9: test vectors B={BATCH} (CRS, PCFICH, DCI 1A, PDSCH) built on the host "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-            clean.dci_bits, clean.payloads)
+    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti, clean.dci_bits)
     tbs = clean.grant.tbs
     chain_ms, runs = {}, {}
     for label, eq, kw in BLIND_RUNS:
@@ -685,7 +698,7 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
         fn(iq)
         torch.cuda.synchronize()
         zero_all(bcjr, viterbi)
-        stats = {k: float(v) for k, v in fn(iq).items()}
+        stats = blind_stats(rx, fn(iq), clean)
         torch.cuda.synchronize()
         counts, vit = dict(bcjr.launches), viterbi.launches
         note_demap(f"blind chain {label}")
@@ -723,7 +736,7 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
 
     fn = rx.make_rx(*args, early_exit=True, eq="mmse", device=dev)
     iq20 = torch.as_tensor(rx.add_noise(clean.rng, clean.td, clean.p_sig, 20.0), device=dev)
-    stats = {k: float(v) for k, v in fn(iq20).items()}
+    stats = blind_stats(rx, fn(iq20), clean)
     bler = 1.0 - stats["n_ok"] / BATCH
     check(bler < 0.6 and stats["n_dci"] == stats["cfi_ok"] == BATCH
           and stats["bit_match"] == 1.0, f"waterfall 20 dB mmse: {stats}")
@@ -734,7 +747,7 @@ def phase_blind_chain(torch, rx, ofdm, chest, dci, bcjr, viterbi, dev):
 
     bad = iq.clone()
     bad[:, : bad.shape[1] // 7] = 0  # the first two OFDM symbols: the control region
-    stats = {k: float(v) for k, v in rx.make_rx(*args, early_exit=True, device=dev)(bad).items()}
+    stats = blind_stats(rx, rx.make_rx(*args, early_exit=True, device=dev)(bad), clean)
     check(stats["n_dci"] == 0, f"corrupted control region: {stats['n_dci']} DCIs found")
     print(f"phase 9: corrupted control region: no DCI found, no crash "
           f"(CFI found in {int(stats['cfi_ok'])}/{BATCH})", flush=True)
@@ -1029,12 +1042,12 @@ def phase_tm2(torch, rx, bcjr, viterbi, dev, siso_forced_ms):
     tbs = clean.grant.tbs
     out = {}
     for label, inst, kw in (("early exit", "r2max", {}), ("forced 8", "fused", {"forced": True})):
-        fn = rx.make_tm2_rx(clean.cell, clean.grant, clean.subframe, clean.rnti, clean.payloads,
+        fn = rx.make_tm2_rx(clean.cell, clean.grant, clean.subframe, clean.rnti,
                             early_exit=True, device=dev, **kw)
         fn(iq)
         torch.cuda.synchronize()
         zero_all(bcjr, viterbi)
-        stats = {k: float(v) for k, v in fn(iq).items()}
+        stats = {k: float(v) for k, v in rx.tb_stats(fn(iq), clean.payloads).items()}
         torch.cuda.synchronize()
         counts = dict(bcjr.launches)
         note_demap(f"tm2 {label}")
@@ -1079,6 +1092,40 @@ def ul_shapes(rx):
         out.append((f"uplink {name} grant B={batch} K={k}", k, turbo.pick_window(k) or k,
                     plan.c * batch))
     return tuple(out)
+
+
+def ul_cell(device):
+    """The loaded uplink subframe of perfbench's configuration
+    lte20_pusch_7ue_mixed (the cell pusch_enb_7ue_b256): (configuration,
+    PuschCell over one codec per UE on `device`)."""
+    from pathlib import Path
+
+    from srsue_tpu_torch.phy.cell import Cell, UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCell, PuschCodec
+
+    cfg = json.loads((Path(__file__).resolve().parent / "perfbench" / "configs" /
+                      "lte20_pusch_7ue_mixed.json").read_text())
+    cell = Cell(n_prb=cfg["n_prb"], cell_id=cfg["cell_id"], n_ports=cfg["n_ports"])
+    codecs = [PuschCodec(cell, UlGrant(n_prb=ue["n_prb"], prb_start=ue["prb_start"],
+                                       mcs=ue["mcs"], mod_order=ue["qm"], tbs=ue["tbs"],
+                                       rv=cfg["rv"]),
+                         ue["rnti"], cfg["subframe"], n_turbo_iters=cfg["turbo_iters"],
+                         n_cqi_bits=ue["cqi_bits"], with_ack=ue["ack_symbols"] > 0,
+                         cqi_rep=ue["cqi_repetition"], ack_syms=ue["ack_symbols"],
+                         device=device)
+              for ue in cfg["ues"]]
+    return cfg, PuschCell(cell, codecs, [ue["cyclic_shift"] for ue in cfg["ues"]])
+
+
+def ul_cell_shapes():
+    """(label, K, lw, blocks) of every r2max decode of phase 14's loaded
+    subframe at B=256: one turbo.decode a K, its blocks of every UE."""
+    from srsue_tpu_torch.phy import turbo
+
+    _, cell_rx = ul_cell("cpu")
+    return tuple((f"uplink cell B={BATCH} K={k} of {len(members)} UE(s)", k,
+                  turbo.pick_window(k) or k, BATCH * sum(count for _, _, count in members))
+                 for k, _, members in cell_rx._k_plan)
 
 
 def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
@@ -1289,6 +1336,106 @@ def phase_uplink(torch, np, rx, bcjr, viterbi, dev, held):
               f"sequences, {int(want_sign.sum())} ACK), every decision right on the card, card "
               f"= CPU (metric within rtol 1e-5)", flush=True)
     return launches, kept
+
+
+def phase_uplink_cell(torch, np, bcjr, viterbi, dev, held):
+    """Phase 14, the loaded subframe: PuschCell over the seven UEs of
+    ul_cell at B=256 and 26 dB (4 distinct subframes tiled), every r2max
+    launch at a shape phase 2 held (ul_cell_shapes). Returns the r2max
+    launches of one decode and (IQ, the receiver) for phase 19."""
+    from srsue_tpu_torch.phy import enb_tx, turbo
+
+    tag = "phase 14: loaded subframe"
+    cfg, cell_rx = ul_cell(dev)
+    codecs = cell_rx.codecs
+    rng = np.random.default_rng(141)
+    held_n = {(b * (k // lw), lw) for k, lw, b in held}
+    n_distinct = 4
+    sent = [[(rng.integers(0, 2, c.grant.tbs).astype(np.uint8),
+              rng.integers(0, 2, c.n_cqi_bits).astype(np.uint8) if c.n_cqi_bits else None,
+              bool(rng.integers(2))) for c in codecs] for _ in range(n_distinct)]
+    td = np.stack([sum(c.encode_sf_uci(pay, cqi_bits=cqi, ack=ack, cyclic_shift=cs)
+                       for c, cs, (pay, cqi, ack) in zip(codecs, cell_rx.cyclic_shifts, sf))
+                   for sf in sent])
+    # every UE sends the same power per allocated subcarrier
+    one = codecs[0].encode_sf_uci(*sent[0][0], cyclic_shift=cell_rx.cyclic_shifts[0])
+    p_sig = float(np.mean(np.abs(one) ** 2)) * cell_rx.cell.nfft / codecs[0].m_sc
+    rows = np.arange(BATCH) % n_distinct
+    iq = torch.as_tensor(enb_tx.awgn(rng, td[rows], SNR_DB, signal_power=p_sig)[0],
+                         device=dev)
+
+    def run(x):
+        out = cell_rx.decode(cell_rx.dematch(x))
+        return out, cell_rx.decode_uci_sf()
+
+    def shapes_held(what):
+        got = set(bcjr.shapes["r2max"])
+        bcjr.shapes["r2max"].clear()
+        check(bool(got) and got <= held_n, f"{tag} {what}: r2max launched at (windows, lw) "
+              f"{sorted(got - held_n)}, not held in phase 2")
+
+    zero_all(bcjr, viterbi)
+    run(iq)  # first call: cuFFT plans, the turbo loop's graphs
+    torch.cuda.synchronize()
+    shapes_held("first call")
+    zero_all(bcjr, viterbi)
+    turbo_calls = []
+    decode = turbo.decode
+
+    def counted(buf, k, *args, **kw):
+        turbo_calls.append((k, buf.shape[0]))
+        return decode(buf, k, *args, **kw)
+
+    turbo.decode = counted
+    try:
+        out, uci = run(iq)
+    finally:
+        turbo.decode = decode
+    torch.cuda.synchronize()
+    counts = dict(bcjr.launches)
+    demaps = note_demap(f"pusch cell B={BATCH}")
+    check(demaps == sum(len(c.groups) for c in codecs),
+          f"{tag}: {demaps} demap launches, one per UE's K-group expected")
+    plan = [(k, BATCH * sum(count for _, _, count in m)) for k, _, m in cell_rx._k_plan]
+    check(turbo_calls == plan and len(plan) == 4,
+          f"{tag}: turbo.decode calls (K, blocks) {turbo_calls}, planned {plan}")
+    want_r2 = 0
+    for k, _, members in cell_rx._k_plan:
+        want_r2 += 2 * max(int(out[u][2][..., first:first + count].max())
+                           for u, first, count in members)
+    check(counts == {n: want_r2 if n == "r2max" else 0 for n in counts}
+          and viterbi.launches == 0, f"{tag}: launches {counts}, Viterbi {viterbi.launches}, "
+          f"{want_r2} r2max expected from the K-groups' iterations")
+    shapes_held(f"B={BATCH}")
+    for u, (c, (pay, ok, iters), (cqi, ack)) in enumerate(zip(codecs, out, uci)):
+        check(bool(ok.all()), f"{tag}: UE {u}: {int((~ok).sum())} TBs failed CRC")
+        want_pay = np.stack([sent[r][u][0] for r in rows])
+        check(bool((pay.cpu().numpy() == want_pay).all()), f"{tag}: UE {u}: payload differs")
+        want_ack = np.array([sent[r][u][2] for r in rows])
+        check(bool((ack.cpu().numpy() == want_ack).all()), f"{tag}: UE {u}: an ACK differs")
+        if c.n_cqi_bits:
+            want_cqi = np.stack([sent[r][u][1] for r in rows])
+            check(bool((cqi.cpu().numpy() == want_cqi).all()), f"{tag}: UE {u}: a CQI differs")
+
+    # card = CPU on 4 subframes: every decision
+    _, cpu_rx = ul_cell("cpu")
+    cpu_out = cpu_rx.decode(cpu_rx.dematch(iq[:4].cpu()))
+    cpu_uci = cpu_rx.decode_uci_sf()
+    for u, (card, cpu, cu, cc) in enumerate(zip(out, cpu_out, uci, cpu_uci)):
+        for name, a, b in zip(("payload", "tb_ok", "iters", "cqi", "ack"),
+                              (*card, *cu), (*cpu, *cc)):
+            check((a is None) == (b is None) and (a is None or bool(
+                (a[:4].cpu() == b).all())), f"{tag}: UE {u}: card and CPU {name} differ")
+    t = cuda_ms(torch, lambda: run(iq), reps=5)
+    shapes_held("timed")
+    iters_all = torch.cat([o[2].reshape(-1) for o in out]).float()
+    print(f"{tag}: {len(codecs)} UEs ({', '.join(f'{c.grant.n_prb} PRB qm {c.qm}' for c in codecs)}"
+          f") at B={BATCH}, {SNR_DB} dB: every TB passes, bit-exact, CQI and ACK found; "
+          f"{demaps} demap launches, turbo.decode at (K, blocks) {turbo_calls}, r2max x"
+          f"{want_r2}, mean iters/block {float(iters_all.mean()):.3f}; card = CPU on 4 "
+          f"subframes (payload, CRC, iterations, CQI, ACK); {t:.3f} ms/batch = "
+          f"{BATCH * cfg['tbs'] / t / 1e3:.1f} Mbps decoded", flush=True)
+    return want_r2, (iq, cell_rx)
 
 
 # phase 15: the whole UE over the air, the port's Ue + Phy against its EnbPhy
@@ -2447,15 +2594,14 @@ def phase_fault7(torch, np, rx, bcjr, viterbi, dev, clean, noisy, blind):
     del llr, idx, gather, scatter
 
     iq = torch.as_tensor(noisy, device=dev)
-    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-            clean.dci_bits, clean.payloads)
+    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti, clean.dci_bits)
     by_path = {}
     for label, eq, kw in BLIND_RUNS:
         fn = rx.make_rx(*args, early_exit=True, eq=eq, device=dev, **kw)
         fn(iq)
         torch.cuda.synchronize()
         zero_all(bcjr, viterbi)
-        stats = {k: float(v) for k, v in fn(iq).items()}
+        stats = blind_stats(rx, fn(iq), clean)
         torch.cuda.synchronize()
         got = (stats, dict(bcjr.launches), viterbi.launches)
         note_demap(f"fault 7 blind chain {label}")
@@ -2630,7 +2776,8 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
     of the LLR form."""
     from srsue_tpu_torch import bench_kernel_variants
     from srsue_tpu_torch.kernels import demap
-    from srsue_tpu_torch.phy import chest, control, dci, equalize, modulation, ofdm, ra, ratematch
+    from srsue_tpu_torch.phy import (chest, control, dci, equalize, modulation, ofdm, pusch, ra,
+                                     ratematch)
     from srsue_tpu_torch.phy.cell import Cell, UlGrant
     from srsue_tpu_torch.phy.pdsch import PdschCodec
     from srsue_tpu_torch.phy.pusch import PuschCodec
@@ -2793,6 +2940,25 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
         check(u_cpu[1] is uci[ack][1] and bool((u_cpu[0] == uci[ack][0]).all()),
               f"{tag}: (d) UCI ACK={ack}: card {uci[ack]}, CPU {u_cpu}")
 
+    # phase 14's loaded subframe: each allocation size and modulation once
+    iq_c, cell_rx = kept["pusch_cell"]
+    eq_c = pusch._equalize(cell_rx.codecs, ofdm.demodulate(cell_rx.cell, iq_c), 1e-4,
+                           cell_rx.cyclic_shifts)
+    sizes = set()
+    for c, (xc, nvc) in zip(cell_rx.codecs, eq_c):
+        if (c.grant.n_prb, c.qm) in sizes:
+            continue
+        sizes.add((c.grant.n_prb, c.qm))
+        what = (f"PUSCH {c.grant.n_prb} PRB {'QPSK' if c.qm == 2 else '16QAM'} of phase 14's "
+                f"loaded subframe, B={BATCH}")
+        for (k, _, count, lo, hi, _), inv32, ranges in zip(c.groups, c._inv32, c._ranges):
+            case(f"{what}, K={k} x {count}", xc, nvc, c.qm, c._scr_erase, inv32,
+                 sym_map=c._data_pos, lo=lo, hi=hi, ranges=ranges)
+        if c.n_cqi_bits:
+            case(f"{what}, CQI symbols' LLRs", xc[:, c._cqi_pos], nvc[:, c._cqi_pos], c.qm)
+    check(sizes == {(4, 2), (6, 2), (15, 4), (25, 4)},
+          f"{tag}: (a) the loaded subframe's allocations {sorted(sizes)}")
+
     # (a) special values: ties between levels, +-0, huge values, +-inf and NaN
     # among the symbols, tiny and NaN noise, 3 repeats with erasures
     x_sp, nv_sp, scr_sp, inv_sp = bench_kernel_variants.demap_special_case(6, 64, dev, DEMAP_SEED)
@@ -2903,9 +3069,9 @@ def phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, kept):
           f"{tag}: (d) entry early exit: decisions differ from phase 3's")
     note_demap("phase 19 entry early exit")
     fn9 = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-                     clean.dci_bits, clean.payloads, early_exit=True, eq="zf", device=dev)
+                     clean.dci_bits, early_exit=True, eq="zf", device=dev)
     zero_all(bcjr, viterbi)
-    stats = {k: float(v) for k, v in fn9(iq9).items()}
+    stats = blind_stats(rx, fn9(iq9), clean)
     torch.cuda.synchronize()
     check(stats == blind["zf"][0], f"{tag}: (d) blind chain zf: {stats}, phase 9 "
           f"{blind['zf'][0]}")
@@ -3029,7 +3195,7 @@ def main() -> int:
     cold = {p: cold_shapes(rx, p) for p in (1, 2)}
     extra = tuple(cold[p][0] for p in (1, 2))
     held = {(k, lw, b) for _, k, lw, b in R2MAX_SHAPES + extra}
-    extra += tuple(sh for sh in ul_shapes(rx) if sh[1:] not in held)
+    extra += tuple(sh for sh in ul_shapes(rx) + ul_cell_shapes() if sh[1:] not in held)
     held |= {sh[1:] for sh in extra}
     ota = {p: ota_shapes(p) for p in (1, 2)}
     mob = mobility_shapes()
@@ -3070,6 +3236,7 @@ def main() -> int:
     phase_silence(np, dev)
     tm2, tm2_kept = phase_tm2(torch, rx, bcjr, viterbi, dev, variant_ms["fused"])
     ul_launches, ul_kept = phase_uplink(torch, np, rx, bcjr, viterbi, dev, held)
+    ulc_launches, ulc_kept = phase_uplink_cell(torch, np, bcjr, viterbi, dev, held)
     ota_launches = phase_ota(torch, np, bcjr, viterbi, dev, held, held_vit, smi[0])
     shard_launches = phase_shard(torch, np, entry, bcjr, dev, held, WORLDS)
     shard_launches.update(phase_tools(torch, np, entry, bcjr, dev, held))
@@ -3080,8 +3247,8 @@ def main() -> int:
     llr_by_path = {k: v for k, v in DEMAP_LLR_BY_PATH.items() if v}
     demap_row, llr_row = phase_demap(torch, np, entry, rx, bcjr, viterbi, dev, {
         "entry": (iq, want, iters), "tm2": tm2_kept, "blind": (clean, noisy, blind),
-        "pusch": ul_kept})
-    del clean, noisy, iq, want, tm2_kept, ul_kept
+        "pusch": ul_kept, "pusch_cell": ulc_kept})
+    del clean, noisy, iq, want, tm2_kept, ul_kept, ulc_kept
 
     flag = rows[0]
     kernels = [{
@@ -3098,6 +3265,7 @@ def main() -> int:
                              "cold start 2 ports": cold2["r2max"],
                              "tm2 early exit": tm2["r2max"],
                              "pusch early exit": ul_launches,
+                             "pusch cell early exit": ulc_launches,
                              "ue_ota": ota_launches["r2max"],
                              "ue_mobility": mob_launches["r2max"], **shard_launches,
                              **{f"fault 7 blind chain {k}": v[0]["r2max"]

@@ -12,6 +12,12 @@ erasure and rate dematching into per-block softbuffers that do not depend
 on rv (HARQ combining is ``+`` of them); then one ``turbo.decode`` per code
 block size, all blocks of that K in one call.
 
+``PuschCell`` receives one subframe shared by several UEs, one
+``PuschCodec`` per allocation, through the same per-allocation code: one
+OFDM demodulation for all of them, each allocation's estimate and ZF, one
+IDFT for all the allocations of one size, each allocation's demap, and one
+``turbo.decode`` for the blocks of one K (and one CRC) of every UE.
+
 Carried over from the reference unchanged: no group or sequence hopping
 (u = cell_id mod 30, v = 0), no 7.5 kHz uplink frequency shift (the
 uplink grid goes through the downlink's OFDM modulator), DMRS for 3 PRB
@@ -165,6 +171,7 @@ class PuschCodec:
         self._data_sym = torch.as_tensor(self.data_sym, device=dev)
         self._dmrs = {}  # cyclic shift -> [2, m_sc] conjugated DMRS on the device
         self._last_uci_llrs = (None, None)
+        self._k_plan = _k_plan([self])
 
     # ------------------------------------------------------------------ UE TX
     def encode_bits(self, payload: np.ndarray) -> np.ndarray:
@@ -224,25 +231,35 @@ class PuschCodec:
                                                        device=self.device)
         return self._dmrs[cyclic_shift]
 
+    def _zf(self, grid: torch.Tensor, cyclic_shift: int):
+        """The allocation's band of a demodulated grid [..., n_sym, n_sc]: the
+        DMRS LS estimate averaged over both slots, and ZF of the data symbols
+        -> (z [..., 12, m_sc], |h|^2 floored at 1e-12 [..., 1, m_sc])."""
+        sc0 = self.grant.prb_start * 12
+        region = grid[..., sc0:sc0 + self.m_sc]
+        ref = self._dmrs_conj(cyclic_shift)
+        h = (region[..., N_DMRS_SYM[0], :] * ref[0]
+             + region[..., N_DMRS_SYM[1], :] * ref[1]) / 2.0
+        y = region[..., self._data_sym, :]  # [..., 12, m_sc]
+        h2 = torch.clamp_min(torch.abs(h) ** 2, 1e-12)[..., None, :]
+        return y * torch.conj(h)[..., None, :] / h2, h2
+
+    @staticmethod
+    def _stream(x_td: torch.Tensor, h2: torch.Tensor, noise_var: float):
+        """The IDFT's output [..., 12, m_sc] -> (syms [..., n_re], nv [...,
+        n_re]) in stream order, with the reference's quirk: subcarrier k's
+        noise on time-domain sample k."""
+        syms = x_td.reshape(x_td.shape[:-2] + (-1,))
+        return syms, (noise_var / h2).expand(x_td.shape).reshape(syms.shape)
+
     def equalize_sf(self, iq, noise_var: float = 1e-4, cyclic_shift: int = 0):
         """IQ [..., sf_len] (a tensor, or numpy moved to the codec's device)
         -> (syms [..., n_re] complex64, nv [..., n_re] float32): DMRS LS
         estimate, ZF and the IDFT, with the reference's per-symbol noise."""
-        cell, m_sc = self.cell, self.m_sc
-        if not isinstance(iq, torch.Tensor):
-            iq = torch.as_tensor(np.asarray(iq, np.complex64), device=self.device)
-        sc0 = self.grant.prb_start * 12
+        iq = _iq_tensor(iq, self.device)
         with annotate("pusch.frontend"):
-            region = ofdm.demodulate(cell, iq)[..., sc0:sc0 + m_sc]
-            ref = self._dmrs_conj(cyclic_shift)
-            h = (region[..., N_DMRS_SYM[0], :] * ref[0]
-                 + region[..., N_DMRS_SYM[1], :] * ref[1]) / 2.0
-            y = region[..., self._data_sym, :]  # [..., 12, m_sc]
-            h2 = torch.clamp_min(torch.abs(h) ** 2, 1e-12)[..., None, :]
-            x_td = torch.fft.ifft(y * torch.conj(h)[..., None, :] / h2, dim=-1) * math.sqrt(m_sc)
-            syms = x_td.reshape(x_td.shape[:-2] + (-1,))
-            # the reference's quirk: subcarrier k's noise on time-domain sample k
-            return syms, (noise_var / h2).expand(y.shape).reshape(syms.shape)
+            return _equalize([self], ofdm.demodulate(self.cell, iq), noise_var,
+                             [cyclic_shift])[0]
 
     def _uci_llrs(self, syms: torch.Tensor, nv: torch.Tensor, pos: torch.Tensor):
         """[..., len(pos), qm] LLRs of the symbols at stream positions pos."""
@@ -260,21 +277,26 @@ class PuschCodec:
         The UCI symbols' LLRs (``modulation.demodulate_soft``) are kept for
         ``decode_uci`` and ``decode_uci_sf``."""
         syms, nv = self.equalize_sf(iq, noise_var, cyclic_shift)
-        lead = syms.shape[:-1]
         with annotate("pusch.demap_dematch"):
-            self._last_uci_llrs = (
-                self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
-                self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
-            bufs = []
-            for (k, first, count, lo, hi, _), inv32, ranges in zip(self.groups, self._inv32,
-                                                                    self._ranges):
-                buf = ratematch.demap_dematch(syms, nv, self.qm, self._scr_erase, inv32,
-                                              self._data_pos, lo, hi, ranges).reshape(
-                    lead + (count, 3 * (k + 4)))
-                if first == 0 and self.plan.f:
-                    buf[..., 0, :self.plan.f] += FILLER_LLR
-                bufs.extend(buf.unbind(-2))
-            return bufs
+            return self._dematch(syms, nv)
+
+    def _dematch(self, syms: torch.Tensor, nv: torch.Tensor) -> list:
+        """Equalized symbols and noise [..., n_re] -> per-code-block
+        softbuffers, and the UCI symbols' LLRs kept."""
+        lead = syms.shape[:-1]
+        self._last_uci_llrs = (
+            self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
+            self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
+        bufs = []
+        for (k, first, count, lo, hi, _), inv32, ranges in zip(self.groups, self._inv32,
+                                                                self._ranges):
+            buf = ratematch.demap_dematch(syms, nv, self.qm, self._scr_erase, inv32,
+                                          self._data_pos, lo, hi, ranges).reshape(
+                lead + (count, 3 * (k + 4)))
+            if first == 0 and self.plan.f:
+                buf[..., 0, :self.plan.f] += FILLER_LLR
+            bufs.extend(buf.unbind(-2))
+        return bufs
 
     def decode_softbuffers(self, bufs: list):
         """Per-block softbuffers -> (payload [..., tbs] uint8, tb_ok [...] bool,
@@ -283,18 +305,7 @@ class PuschCodec:
         CRC: the same results as one call per block). tb_ok is every block's
         CRC, as in the reference (the TB CRC24A is the block CRC when C = 1
         and is not checked again when C > 1)."""
-        hards, oks, iters = [], [], []
-        with annotate("pusch.turbo"):
-            for k, first, count, *_ in self.groups:
-                buf = torch.stack(bufs[first:first + count], -2)
-                lead = buf.shape[:-2]
-                hard, it, ok = turbo.decode(buf.reshape(-1, 3, k + 4), k, self.n_turbo_iters,
-                                            self._blk_crc[k])
-                hards.append(hard.reshape(lead + (count * k,)))
-                oks.append(ok.reshape(lead + (count,)))
-                iters.append(it.reshape(lead + (count,)))
-            blk_ok = torch.cat(oks, -1)
-            return torch.cat(hards, -1)[..., self._tb_pos], blk_ok.all(-1), torch.cat(iters, -1)
+        return _decode([self], self._k_plan, [bufs])[0]
 
     def decode_sf(self, iq, noise_var: float = 1e-4, cyclic_shift: int = 0):
         """IQ [..., sf_len] -> (payload, tb_ok, iters): ``dematch_sf`` then
@@ -312,18 +323,18 @@ class PuschCodec:
             return llr.reshape(-1) if whole else llr.flatten(-2)
 
         cqi_llr, ack_llr = self._last_uci_llrs
-        with annotate("pusch.uci"):
-            cqi = None if cqi_llr is None else uci.rm20_decode_t(
-                uci.rm20_sums(words(cqi_llr)), self.n_cqi_bits)
-            ack = None if ack_llr is None else words(ack_llr).sum(-1) > 0
-            return cqi, ack
+        cqi = None if cqi_llr is None else uci.rm20_decode_t(
+            uci.rm20_sums(words(cqi_llr)), self.n_cqi_bits)
+        ack = None if ack_llr is None else words(ack_llr).sum(-1) > 0
+        return cqi, ack
 
     def decode_uci_sf(self):
         """The UCI of each subframe of the last ``dematch_sf`` call, as
         tensors on the codec's device: (cqi [..., A] uint8 | None, ack [...]
         bool | None), None where the codec carries no such UCI. Each
         subframe's CQI and ACK come from its own LLRs alone."""
-        return self._uci(whole=False)
+        with annotate("pusch.uci"):
+            return self._uci(whole=False)
 
     def decode_uci(self):
         """The UCI of the last ``dematch_sf`` call on the host: (cqi_bits
@@ -331,6 +342,140 @@ class PuschCodec:
         call (all batch elements, in order) sums into the 20 RM positions as
         one stream, and the ACK is the sign of the sum of all its LLRs: the
         decoder of ``decode_uci_sf`` over the whole call, the same at B=1."""
-        cqi, ack = self._uci(whole=True)
+        with annotate("pusch.uci"):
+            cqi, ack = self._uci(whole=True)
         return (None if cqi is None else to_host(cqi),
                 None if ack is None else bool(to_host(ack)))
+
+
+class PuschCell:
+    """An eNB's receive of one uplink subframe shared by several UEs: one
+    ``PuschCodec`` per allocation (its band, modulation, transport block,
+    RNTI, UCI and tables) on one `cell`, each UE with its DMRS cyclic shift.
+    The codecs' decoders run on their device (all on one), with the same
+    per-allocation code as ``PuschCodec``'s own receive:
+
+    - ``dematch(iq, noise_var)``: one OFDM demodulation of the batch; each
+      allocation's band, DMRS estimate and ZF; one IDFT for all the
+      allocations of one M_sc (span ``pusch.idft_group`` each); each
+      allocation's demap, descramble, ACK erasure and dematch. Returns each
+      UE's per-block softbuffers.
+    - ``decode(bufs)``: the blocks of one K and one CRC of every UE stacked
+      into one ``turbo.decode`` call (span ``pusch.k_group`` each; CRC early
+      exit, each block frozen on its own CRC), the results split back: each
+      UE's (payload, tb_ok, iters), as its codec's ``decode_softbuffers``.
+    - ``decode_uci_sf()``: each UE's (cqi, ack) of every subframe of the
+      last ``dematch``, as its codec's ``decode_uci_sf``.
+    """
+
+    def __init__(self, cell: Cell, codecs: list, cyclic_shifts: list):
+        codecs = list(codecs)
+        if not codecs:
+            raise ValueError("a subframe needs at least one allocation")
+        if any(c.cell != cell for c in codecs):
+            raise ValueError("every codec must be of the subframe's cell")
+        if len({c.device for c in codecs}) != 1 or len({c.n_turbo_iters for c in codecs}) != 1:
+            raise ValueError("the codecs must share one device and one turbo iteration count")
+        bands = sorted((c.grant.prb_start, c.grant.prb_start + c.grant.n_prb) for c in codecs)
+        if bands[0][0] < 0 or bands[-1][1] > cell.n_prb or any(
+                a[1] > b[0] for a, b in zip(bands, bands[1:])):
+            raise ValueError(f"allocations overlap or leave the cell: {bands}")
+        self.cell, self.codecs, self.device = cell, codecs, codecs[0].device
+        self.cyclic_shifts = list(cyclic_shifts)
+        if len(self.cyclic_shifts) != len(codecs):
+            raise ValueError("one cyclic shift per codec")
+        self._k_plan = _k_plan(codecs)
+
+    def dematch(self, iq, noise_var: float = 1e-4) -> list:
+        """IQ [..., sf_len] (a tensor, or numpy moved to the device) -> each
+        UE's per-code-block softbuffers, each [..., 3(K+4)]; each UE's UCI
+        LLRs kept for ``decode_uci_sf``."""
+        iq = _iq_tensor(iq, self.device)
+        with annotate("pusch.frontend"):
+            eq = _equalize(self.codecs, ofdm.demodulate(self.cell, iq), noise_var,
+                           self.cyclic_shifts)
+        with annotate("pusch.demap_dematch"):
+            return [c._dematch(syms, nv) for c, (syms, nv) in zip(self.codecs, eq)]
+
+    def decode(self, bufs: list) -> list:
+        """Each UE's softbuffers -> each UE's (payload [..., tbs] uint8, tb_ok
+        [...] bool, iters [..., C] int32)."""
+        return _decode(self.codecs, self._k_plan, bufs)
+
+    def decode_uci_sf(self) -> list:
+        """Each UE's (cqi [..., A] uint8 | None, ack [...] bool | None) of each
+        subframe of the last ``dematch``, on the device."""
+        with annotate("pusch.uci"):
+            return [c._uci(whole=False) for c in self.codecs]
+
+
+def _iq_tensor(iq, device: torch.device) -> torch.Tensor:
+    if isinstance(iq, torch.Tensor):
+        return iq
+    return torch.as_tensor(np.asarray(iq, np.complex64), device=device)
+
+
+def _equalize(codecs: list, grid: torch.Tensor, noise_var: float, shifts: list) -> list:
+    """Each codec's (syms, nv) from one demodulated grid: its band's estimate
+    and ZF, then one IDFT for the allocations of one M_sc (stacked on a
+    leading axis; a lone allocation's IDFT is its own)."""
+    zf = [c._zf(grid, cs) for c, cs in zip(codecs, shifts)]
+    by_size: dict = {}
+    for i, c in enumerate(codecs):
+        by_size.setdefault(c.m_sc, []).append(i)
+    out = [None] * len(codecs)
+    for m_sc, members in by_size.items():
+        with annotate("pusch.idft_group"):
+            if len(members) == 1:
+                x_td = (torch.fft.ifft(zf[members[0]][0], dim=-1) * math.sqrt(m_sc),)
+            else:
+                x_td = (torch.fft.ifft(torch.stack([zf[i][0] for i in members]), dim=-1)
+                        * math.sqrt(m_sc)).unbind(0)
+        for x, i in zip(x_td, members):
+            out[i] = codecs[i]._stream(x, zf[i][1], noise_var)
+    return out
+
+
+def _k_plan(codecs: list) -> list:
+    """[(K, CRC matrix on the device, [(codec, first block, count)])]: the
+    K-groups of every codec merged where K and the block CRC agree, in order
+    of first appearance. A codec's blocks of one K are contiguous."""
+    plan: dict = {}
+    for u, c in enumerate(codecs):
+        for k, first, count, *_ in c.groups:
+            key = (k, c.blk_crc[k].tobytes())
+            plan.setdefault(key, (k, c._blk_crc[k], []))[2].append((u, first, count))
+    return list(plan.values())
+
+
+def _decode(codecs: list, plan: list, bufs: list) -> list:
+    """Each codec's per-block softbuffers -> each codec's (payload, tb_ok,
+    iters): one ``turbo.decode`` per entry of `plan`, its blocks stacked in
+    plan order, the results split back and each codec's blocks put in order."""
+    parts = [{} for _ in codecs]  # codec -> first block -> (hard, ok, iters)
+    with annotate("pusch.turbo"):
+        for k, crc_m, members in plan:
+            buf = torch.stack([b for u, first, count in members
+                               for b in bufs[u][first:first + count]], -2)
+            lead = buf.shape[:-2]
+            with annotate("pusch.k_group"):
+                hard, it, ok = turbo.decode(buf.reshape(-1, 3, k + 4), k,
+                                            codecs[0].n_turbo_iters, crc_m)
+            if len(members) == 1:  # one codec's blocks: its results as they come
+                u, first, count = members[0]
+                parts[u][first] = (hard.reshape(lead + (count * k,)), ok.reshape(lead + (count,)),
+                                   it.reshape(lead + (count,)))
+                continue
+            hard = hard.reshape(lead + (-1, k))
+            ok, it = ok.reshape(lead + (-1,)), it.reshape(lead + (-1,))
+            j = 0
+            for u, first, count in members:
+                parts[u][first] = (hard.narrow(-2, j, count).reshape(lead + (count * k,)),
+                                   ok.narrow(-1, j, count), it.narrow(-1, j, count))
+                j += count
+        out = []
+        for c, got in zip(codecs, parts):
+            hards, oks, iters = zip(*(got[f] for f in sorted(got)))
+            out.append((torch.cat(hards, -1)[..., c._tb_pos], torch.cat(oks, -1).all(-1),
+                         torch.cat(iters, -1)))
+        return out

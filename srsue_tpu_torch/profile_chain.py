@@ -67,8 +67,7 @@ def blind_runs(batch: int, dev):
     control stage, on bench.py's subframes at 26 dB."""
     clean = rx.build_clean(batch, n_distinct=4)
     iq = torch.as_tensor(rx.add_noise(clean.rng, clean.td, clean.p_sig, 26.0), device=dev)
-    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-            clean.dci_bits, clean.payloads)
+    args = (clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti, clean.dci_bits)
     grid = ofdm.demodulate(clean.cell, iq)
     h, nvar, _ = chest.estimate(clean.cell, grid, clean.subframe)
     ctrl = rx.control_stage(clean.cell, clean.subframe, clean.cfi, clean.rnti,

@@ -30,6 +30,7 @@ from .phy.cell import Cell, DlGrant, UlGrant
 from .phy.pdsch import PdschCodec
 from .phy.pdsch import codec as cached_codec
 from .phy.pusch import PuschCodec
+from .utils.trace import annotate
 
 N_PRB, CELL_ID, SUBFRAME, CFI, RNTI, MCS = 100, 42, 6, 1, 0x1234, 28
 EQS = ("zf", "mmse", "zf_scalar")
@@ -113,16 +114,15 @@ def control_stage(cell: Cell, subframe: int, cfi: int, rnti: int, dci_len: int,
 
 
 def make_rx(cell: Cell, grant: DlGrant, subframe: int, cfi: int, rnti: int,
-            dci_bits: np.ndarray, expected: np.ndarray, early_exit: bool,
-            eq: str = "zf", kernel: str = "r2max", forced: bool = False,
-            device: str | torch.device = "cuda"):
+            dci_bits: np.ndarray, early_exit: bool, eq: str = "zf", kernel: str = "r2max",
+            forced: bool = False, device: str | torch.device = "cuda"):
     """The per-TTI chain of ``bench.make_rx``: fn(iq [B, sf_len] complex64 on
-    `device`, the current CUDA device unless "cpu" is given) -> stats, a
-    dict of 0-dim float32 tensors: n_ok (TBs passing CRC), bit_match (share
-    of payload bits equal to `expected` over the passing TBs), mean_iters
-    (turbo iterations per block), n_dci (subframes whose blind search found
-    `dci_bits` on a CRC-passing candidate), cfi_ok (subframes whose PCFICH
-    gave `cfi`), and max_iters.
+    `device`, the current CUDA device unless "cpu" is given) -> its outputs,
+    a dict of tensors on the device: payload [B, tbs] uint8, tb_ok [B] bool,
+    iters [B, C] int32, cfi [B] (each subframe's PCFICH), dci_hit [B] bool
+    (the blind search found `dci_bits` on a CRC-passing candidate) and
+    softbuf (the PDSCH's softbuffers, per K-group [B, count, 3(K+4)]).
+    ``tb_stats`` reduces them to bench.py's statistics.
 
     eq: "zf" | "mmse" (per-RE noise-weighted demap) | "zf_scalar" (ZF with
     the noise averaged over the allocation before the demap). `kernel`,
@@ -135,32 +135,45 @@ def make_rx(cell: Cell, grant: DlGrant, subframe: int, cfi: int, rnti: int,
     eq_fn = _equalizer(eq)
     ctrl = control_stage(cell, subframe, cfi, rnti, dci.size_0_1a(cell.n_prb), eq)
     exp_dci = torch.as_tensor(np.asarray(dci_bits, np.uint8), device=dev)
-    want = torch.as_tensor(np.asarray(expected, np.uint8), device=dev)
 
-    def rx(iq: torch.Tensor) -> dict[str, torch.Tensor]:
-        grid = ofdm.demodulate(cell, iq)
-        h, nvar, _ = chest.estimate(cell, grid, subframe, port=0)
-        cfi_dev, hard, ok = ctrl(grid, h, nvar)
-        match = (hard == exp_dci).all(-1) & ok
+    def rx(iq: torch.Tensor) -> dict:
+        with annotate("ue_dl.frontend"):
+            grid = ofdm.demodulate(cell, iq)
+            h, nvar, _ = chest.estimate(cell, grid, subframe, port=0)
+        with annotate("ue_dl.control"):
+            cfi_dev, hard, ok = ctrl(grid, h, nvar)
+            match = (hard == exp_dci).all(-1) & ok
         x_eq, nv_eff = eq_fn(codec.extract_re(grid), codec.extract_re(h), nvar)
         if eq == "zf_scalar":
             nv_eff = nv_eff.mean(-1, keepdim=True).expand_as(nv_eff)
-        payload, tb_ok, _, iters = codec.decode(x_eq, nv_eff)
-        return {**_tb_stats(payload, tb_ok, iters, want[: iq.shape[0]]),
-                "n_dci": match.any(-1).sum().to(torch.float32),
-                "cfi_ok": (cfi_dev == cfi).sum().to(torch.float32)}
+        bufs = codec.demap_dematch(x_eq, nv_eff)
+        payload, tb_ok, _, iters = codec.decode_softbuffers(bufs)
+        return {"payload": payload, "tb_ok": tb_ok, "iters": iters, "cfi": cfi_dev,
+                "dci_hit": match.any(-1), "softbuf": bufs}
 
     return rx
 
 
-def _tb_stats(payload, tb_ok, iters, want) -> dict[str, torch.Tensor]:
-    """n_ok, bit_match, mean_iters and max_iters of one decoded batch."""
-    bad = ((payload != want) & tb_ok[:, None]).sum()
+def tb_stats(out: dict, expected: np.ndarray, cfi: int | None = None) -> dict:
+    """bench.py's statistics of one decoded batch (``make_rx``'s or
+    ``make_tm2_rx``'s outputs), 0-dim float32 tensors: n_ok (TBs passing
+    CRC), bit_match (share of payload bits equal to `expected` over the
+    passing TBs), mean_iters (turbo iterations per block) and max_iters;
+    with a DCI hit mask n_dci (subframes whose search found the DCI), and
+    with `cfi` cfi_ok (subframes whose PCFICH gave it)."""
+    payload, tb_ok, iters = out["payload"], out["tb_ok"], out["iters"]
+    want = torch.as_tensor(np.asarray(expected, np.uint8), device=payload.device)
+    bad = ((payload != want[: payload.shape[0]]) & tb_ok[:, None]).sum()
     f32 = torch.float32
-    return {"n_ok": tb_ok.sum().to(f32),
-            "bit_match": (1.0 - bad.double() / payload.numel()).to(f32),
-            "mean_iters": iters.to(f32).mean(),
-            "max_iters": iters.max().to(f32)}
+    stats = {"n_ok": tb_ok.sum().to(f32),
+             "bit_match": (1.0 - bad.double() / payload.numel()).to(f32),
+             "mean_iters": iters.to(f32).mean(),
+             "max_iters": iters.max().to(f32)}
+    if "dci_hit" in out:
+        stats["n_dci"] = out["dci_hit"].sum().to(f32)
+    if cfi is not None:
+        stats["cfi_ok"] = (out["cfi"] == cfi).sum().to(f32)
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -203,28 +216,27 @@ def build_tm2(batch: int, n_distinct: int | None = None) -> Tm2Clean:
     return Tm2Clean(cell, grant, SUBFRAME, RNTI, pls[sel], td, p_sig, rng)
 
 
-def make_tm2_rx(cell: Cell, grant: DlGrant, subframe: int, rnti: int,
-                expected: np.ndarray, early_exit: bool, kernel: str = "r2max",
-                forced: bool = False, device: str | torch.device = "cuda"):
+def make_tm2_rx(cell: Cell, grant: DlGrant, subframe: int, rnti: int, early_exit: bool,
+                kernel: str = "r2max", forced: bool = False,
+                device: str | torch.device = "cuda"):
     """The TM2 data chain of ``bench.make_tm2_rx``: fn(iq [B, sf_len]
     complex64 on `device`, the current CUDA device unless "cpu" is given) ->
-    the stats of ``make_rx`` less the control fields (n_ok, bit_match,
-    mean_iters, max_iters). OFDM demod, one channel estimate per port,
-    Alamouti combining of the PDSCH REs, decode; `kernel`, `early_exit` and
-    `forced` choose the turbo decoder's form (``PdschCodec``)."""
+    payload, tb_ok and iters as ``make_rx`` gives them. OFDM demod, one
+    channel estimate per port, Alamouti combining of the PDSCH REs, decode;
+    `kernel`, `early_exit` and `forced` choose the turbo decoder's form
+    (``PdschCodec``)."""
     codec = PdschCodec(cell, grant, rnti=rnti, subframe=subframe, cfi=CFI,
                        n_turbo_iters=8, early_exit=early_exit, device=device,
                        kernel=kernel, forced=forced)
-    want = torch.as_tensor(np.asarray(expected, np.uint8), device=codec.device)
 
-    def rx(iq: torch.Tensor) -> dict[str, torch.Tensor]:
+    def rx(iq: torch.Tensor) -> dict:
         grid = ofdm.demodulate(cell, iq)
         h0, nvar, _ = chest.estimate(cell, grid, subframe, port=0)
         h1, _, _ = chest.estimate(cell, grid, subframe, port=1)
         x_eq, nv_eff = equalize.alamouti_combine(
             codec.extract_re(grid), codec.extract_re(h0), codec.extract_re(h1), nvar)
         payload, tb_ok, _, iters = codec.decode(x_eq, nv_eff)
-        return _tb_stats(payload, tb_ok, iters, want[: iq.shape[0]])
+        return {"payload": payload, "tb_ok": tb_ok, "iters": iters}
 
     return rx
 

@@ -7,10 +7,12 @@ profiler records, and otherwise one shared no-op context, which adds no
 sync, no CUDA event and no allocation. Spans live in the profiler's memory
 and go out with its trace. ``SPANS`` names every span the receive path
 records (``Phy.work`` records the frontend and control stages' spans
-too, without ``ue_dl.process``, ``ue_dl.control`` and ``ue_dl.dci``);
-``turbo.exit_check``, ``turbo.graph_capture`` and the frontends'
-``frontend.graph_capture`` and ``frontend.graph_replay`` are also counters
-(spans counted per step).
+too, without ``ue_dl.process``, ``ue_dl.control`` and ``ue_dl.dci``;
+``rx.make_rx`` records ``ue_dl.frontend`` and ``ue_dl.control`` as roots);
+``turbo.exit_check``, ``turbo.graph_capture``, the frontends'
+``frontend.graph_capture`` and ``frontend.graph_replay``, and the uplink's
+``pusch.idft_group`` and ``pusch.k_group`` are also counters (spans counted
+per step).
 
 ``ProfilerTrace`` stands in for the reference's ``XlaTrace`` (jax.profiler)
 with the same contract: ``logdir``, ``active``, an ``errors`` list, and a
@@ -29,8 +31,10 @@ import torch
 # every span of the receive path; a child sits inside its parent's interval
 SPANS = (
     "ue_dl.process",         # UeDl.process, the whole call (root)
-    "ue_dl.frontend",        # OFDM, CRS estimate(s), ZF or SFBC control combining, metrics
-    "ue_dl.control",         # PCFICH to the unpacked hits of every batch element
+    "ue_dl.frontend",        # OFDM, CRS estimate(s), ZF or SFBC control combining, metrics;
+                             # in rx.make_rx (a root there) OFDM and the CRS estimate
+    "ue_dl.control",         # PCFICH to the unpacked hits of every batch element; in
+                             # rx.make_rx (a root there) equalization, PCFICH, search, match
     "ue_dl.pcfich",          # control's child: PCFICH decode and the CFI read
     "ue_dl.blind_search",    # control's child: the batched search, its Viterbi launches
     "ue_dl.blind_hits",      # control's child: hard bits and flags read, hits selected
@@ -48,9 +52,11 @@ SPANS = (
     "turbo.graph_capture",   # counter: a shape's capture of the masked loop as CUDA graphs
     "pdsch.tb_crc",          # the TB CRC
     "shard.exchange",        # shard_decode's all_reduce through its check on the host
-    "pusch.frontend",        # PuschCodec.equalize_sf: OFDM, DMRS estimate, ZF, the IDFT
+    "pusch.frontend",        # equalize_sf, PuschCell.dematch: OFDM, DMRS estimates, ZF, the IDFTs
+    "pusch.idft_group",      # counter: one IDFT over the allocations of one size
     "pusch.demap_dematch",   # the UCI symbols' LLRs and every K-group's demap kernel
     "pusch.turbo",           # decode_softbuffers: each K-group's stack and turbo.decode
+    "pusch.k_group",         # counter: one turbo.decode over one K's blocks of every UE
     "pusch.uci",             # the CQI's and ACK's decode, per subframe or over the call
 )
 

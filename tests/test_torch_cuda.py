@@ -287,9 +287,10 @@ def test_blind_chain_on_card_matches_cpu(cuda_device, eq, forced):
     out = {}
     for dev in ("cpu", cuda_device):
         fn = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-                        clean.dci_bits, clean.payloads, True, eq, forced=forced, device=dev)
+                        clean.dci_bits, True, eq, forced=forced, device=dev)
         before = viterbi.launches
-        out[str(dev)] = {k: float(v) for k, v in fn(torch.as_tensor(noisy, device=dev)).items()}
+        stats = rx.tb_stats(fn(torch.as_tensor(noisy, device=dev)), clean.payloads, clean.cfi)
+        out[str(dev)] = {k: float(v) for k, v in stats.items()}
         assert viterbi.launches == before + (str(dev) != "cpu")
     assert out["cpu"] == out[str(cuda_device)]
     assert out["cpu"]["n_dci"] == out["cpu"]["n_ok"] == out["cpu"]["cfi_ok"] == 3
@@ -370,6 +371,55 @@ def test_two_port_ue_dl_on_card_matches_cpu(cuda_device):
         np.testing.assert_array_equal(a, b)
     assert gpu.tb_ok.all()
     np.testing.assert_array_equal(gpu.payload[0], stream.data[(0, sf)])
+
+
+def test_pusch_cell_on_card_matches_cpu(cuda_device):
+    """Three UEs in one 25 PRB subframe (12 PRB 16QAM with CQI, 6 and 4 PRB
+    QPSK, each with its ACK and cyclic shift), 2 subframes at 20 dB, through
+    ``PuschCell``: each UE's payload, CRC flag, iterations, CQI and ACK equal
+    on the card and the CPU, softbuffers within float32 rounding (rtol 1e-5,
+    floor 1e-5 of the peak); every TB passes."""
+    from srsue_tpu_torch.phy.cell import UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCell, PuschCodec
+
+    cell = Cell(n_prb=25, cell_id=301)
+    ues = [(12, 1, 4, 4968, 0, 4), (6, 13, 2, 600, 6, 0), (4, 19, 2, 176, 3, 0)]
+    rng = np.random.default_rng(17)
+    sent = [[(rng.integers(0, 2, tbs).astype(np.uint8), rng.integers(0, 2, cqi).astype(np.uint8),
+              bool(rng.integers(0, 2))) for _, _, _, tbs, _, cqi in ues] for _ in range(2)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        codecs = [PuschCodec(cell, UlGrant(n, start, 0, qm, tbs), 0x1234 + i, 2,
+                             n_cqi_bits=cqi, with_ack=True, device=dev)
+                  for i, (n, start, qm, tbs, _, cqi) in enumerate(ues)]
+        if dev == "cpu":
+            wave = np.stack([sum(c.encode_sf_uci(p, cqi_bits=q if c.n_cqi_bits else None, ack=a,
+                                                 cyclic_shift=ue[4])
+                                 for c, ue, (p, q, a) in zip(codecs, ues, row)) for row in sent])
+            nv = float(np.mean(np.abs(wave) ** 2)) * cell.nfft / (12 * 22) / 100.0
+            noisy = (wave + np.sqrt(nv / 2) * (rng.standard_normal(wave.shape)
+                                               + 1j * rng.standard_normal(wave.shape))
+                     ).astype(np.complex64)
+        rx = PuschCell(cell, codecs, [ue[4] for ue in ues])
+        bufs = rx.dematch(torch.as_tensor(noisy, device=dev), nv)
+        out[str(dev)] = ([[b.cpu() for b in u] for u in bufs],
+                         [[v.cpu().numpy() for v in d] for d in rx.decode(bufs)],
+                         [[None if v is None else v.cpu().numpy() for v in u]
+                          for u in rx.decode_uci_sf()])
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    for ua, ub in zip(gpu[0], cpu[0], strict=True):
+        for a, b in zip(ua, ub, strict=True):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    for u, ue in enumerate(ues):
+        for a, b in zip(gpu[1][u], cpu[1][u]):
+            np.testing.assert_array_equal(a, b)
+        assert gpu[1][u][1].all()
+        np.testing.assert_array_equal(gpu[1][u][0], np.stack([row[u][0] for row in sent]))
+        np.testing.assert_array_equal(gpu[2][u][1], [row[u][2] for row in sent])
+        np.testing.assert_array_equal(gpu[2][u][1], cpu[2][u][1])
+        if ue[5]:
+            np.testing.assert_array_equal(gpu[2][u][0], np.stack([row[u][1] for row in sent]))
+            np.testing.assert_array_equal(gpu[2][u][0], cpu[2][u][0])
 
 
 def test_pusch_with_uci_on_card_matches_cpu(cuda_device):
@@ -723,9 +773,10 @@ def test_blind_search_and_pusch_decode_through_the_demap_kernel(cuda_device):
     found = {}
     for dev in ("cpu", cuda_device):
         fn = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-                        clean.dci_bits, clean.payloads, True, "zf", device=dev)
+                        clean.dci_bits, True, "zf", device=dev)
         before = demap.launches
-        found[str(dev)] = {k: float(v) for k, v in fn(torch.as_tensor(noisy, device=dev)).items()}
+        stats = rx.tb_stats(fn(torch.as_tensor(noisy, device=dev)), clean.payloads, clean.cfi)
+        found[str(dev)] = {k: float(v) for k, v in stats.items()}
         # PCFICH (LLR form), the blind search and the PDSCH (softbuffer form)
         assert demap.launches == before + (3 if str(dev) != "cpu" else 0)
     assert found["cpu"] == found[str(cuda_device)]

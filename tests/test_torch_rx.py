@@ -35,9 +35,9 @@ def _ref_stats(clean, noisy, early_exit, eq):
 
 def _port_stats(clean, noisy, early_exit, eq, forced=False):
     fn = rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-                    clean.dci_bits, clean.payloads, early_exit, eq, forced=forced,
-                    device="cpu")
-    return {k: float(v) for k, v in fn(torch.as_tensor(noisy)).items()}
+                    clean.dci_bits, early_exit, eq, forced=forced, device="cpu")
+    stats = rx.tb_stats(fn(torch.as_tensor(noisy)), clean.payloads, clean.cfi)
+    return {k: float(v) for k, v in stats.items()}
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def test_control_stage_and_bad_equalizer(small):
     assert cfi.tolist() == [2, 2] and hard.shape == (2, n_cand, n) and ok.shape == (2, n_cand)
     with pytest.raises(ValueError, match="eq must be"):
         rx.make_rx(clean.cell, clean.grant, clean.subframe, clean.cfi, clean.rnti,
-                   clean.dci_bits, clean.payloads, True, "lmmse", device="cpu")
+                   clean.dci_bits, True, "lmmse", device="cpu")
 
 
 def test_build_clean_matches_bench():

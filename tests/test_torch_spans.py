@@ -1,7 +1,8 @@
 """The port's spans (``utils/trace.py``'s ``annotate`` and ``SPANS``) on the
 CPU: the span tree of ``UeDl.process`` on 6 PRB TM1 and TM2 subframes from
 the port's own transmitter (on the card too, with the turbo loop's capture as
-CUDA graphs), the same stages' spans in the UE's ``Phy.work``, the turbo loops' iteration and exit-check counts, the shared no-op with no profiler running, ``shard_decode``'s
+CUDA graphs), the same stages' spans in the UE's ``Phy.work``, the blind
+chain ``rx.make_rx``'s, the turbo loops' iteration and exit-check counts, the shared no-op with no profiler running, ``shard_decode``'s
 exchange on each of two gloo ranks, and results that do not change while
 spans record. Imports no JAX: the spawned ranks import this module."""
 
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from srsue_tpu_torch import rx
 from srsue_tpu_torch.parallel import mesh
 from srsue_tpu_torch.phy import control, dci, enb_tx, pdsch, pusch, turbo
 from srsue_tpu_torch.phy.cell import Cell, UlGrant
@@ -116,6 +118,33 @@ def test_process_span_tree(tm, tmp_path):
             for _, first, count, *_ in codec.groups]
     assert names.count("turbo.iteration") == sum(runs)
     assert names.count("turbo.exit_check") == sum(min(r, n - 1) for r in runs)
+
+
+# rx.make_rx's spans and each one's enclosing span: its front end and control
+# stage are roots beside the PDSCH codec's own
+RX_PARENT = {"ue_dl.frontend": None, "ue_dl.control": None, "pdsch.demap_dematch": None,
+             "pdsch.turbo": None, "turbo.iteration": "pdsch.turbo",
+             "turbo.exit_check": "pdsch.turbo", "pdsch.tb_crc": None}
+
+
+def test_make_rx_span_tree(tmp_path):
+    """The blind chain records its front end, then its control stage (PCFICH,
+    the search and the DCI match), then the PDSCH's spans, each once, and
+    finds the DCI and the TB of every subframe."""
+    cell = _cell("tm1")
+    bits = dci.pack_1a(cell.n_prb, dci.Dci1A(riv=dci.riv_encode(cell.n_prb, 0, cell.n_prb),
+                                             mcs=CFG["mcs"], harq_pid=0, ndi=True, rv=0, tpc=0))
+    fn = rx.make_rx(cell, dl_grant(cell.n_prb, CFG["mcs"]), CFG["subframe"], CFG["cfi"],
+                    CFG["rnti"], bits, early_exit=True, device="cpu")
+    out, events = _recorded(lambda: fn(_iq("tm1")), tmp_path)
+    assert out["dci_hit"].all() and out["tb_ok"].all() and (out["cfi"] == CFG["cfi"]).all()
+    names = [e["name"] for e in events]
+    assert set(names) <= set(RX_PARENT) and set(names) <= set(trace.SPANS)
+    for e in events:
+        assert _parent(e, events) == RX_PARENT[e["name"]], e["name"]
+    roots = [n for n in names if n in ("ue_dl.frontend", "ue_dl.control", "pdsch.demap_dematch",
+                                       "pdsch.turbo")]
+    assert roots == ["ue_dl.frontend", "ue_dl.control", "pdsch.demap_dematch", "pdsch.turbo"]
 
 
 @pytest.mark.parametrize("tm", ["tm1", "tm2"])
@@ -265,9 +294,10 @@ def test_every_span_of_the_package_is_in_spans():
 
 # PuschCodec's spans on a 6 PRB 16QAM grant with CQI and ACK, and each one's
 # enclosing span
-PUSCH_PARENT = {"pusch.frontend": None, "pusch.demap_dematch": None, "pusch.turbo": None,
-                "turbo.iteration": "pusch.turbo", "turbo.exit_check": "pusch.turbo",
-                "pusch.uci": None}
+PUSCH_PARENT = {"pusch.frontend": None, "pusch.idft_group": "pusch.frontend",
+                "pusch.demap_dematch": None, "pusch.turbo": None,
+                "pusch.k_group": "pusch.turbo", "turbo.iteration": "pusch.k_group",
+                "turbo.exit_check": "pusch.k_group", "pusch.uci": None}
 
 
 def _pusch_step():
@@ -289,8 +319,9 @@ def _pusch_step():
 
 
 def test_pusch_span_tree(tmp_path):
-    """The uplink's four spans once each in a step, the turbo loop's inside
-    ``pusch.turbo``, and the step's results as without a profiler."""
+    """The uplink's four spans once each in a step, its one IDFT group inside
+    ``pusch.frontend``, its one K-group inside ``pusch.turbo`` holding the
+    turbo loop's spans, and the step's results as without a profiler."""
     step = _pusch_step()
     plain = step()
     rec, events = _recorded(step, tmp_path)
@@ -298,11 +329,53 @@ def test_pusch_span_tree(tmp_path):
     assert set(names) == set(PUSCH_PARENT) and set(names) <= set(trace.SPANS)
     for e in events:
         assert _parent(e, events) == PUSCH_PARENT[e["name"]], e["name"]
-    for name in ("pusch.frontend", "pusch.demap_dematch", "pusch.turbo", "pusch.uci"):
+    for name in ("pusch.frontend", "pusch.idft_group", "pusch.demap_dematch", "pusch.turbo",
+                 "pusch.k_group", "pusch.uci"):
         assert names.count(name) == 1, name
     assert rec[1].all() and rec[4].tolist() == [True, False]
     for a, b in zip(plain, rec, strict=True):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# PuschCell's step on a 15 PRB cell: two 4 PRB QPSK UEs (one size, one K) and
+# a 6 PRB 16QAM UE with CQI; the top-level spans in the order they run
+CELL_SPANS = ["pusch.frontend", "pusch.demap_dematch", "pusch.turbo", "pusch.uci"]
+
+
+def test_pusch_cell_span_tree(tmp_path):
+    """One ``pusch.frontend`` holding one ``pusch.idft_group`` per allocation
+    size (2), one ``pusch.turbo`` holding one ``pusch.k_group`` per K (2),
+    the turbo loop's spans inside a K-group, one ``pusch.uci``; in that
+    order, and the results as without a profiler."""
+    cell = Cell(n_prb=15, cell_id=42)
+    ues = [(4, 1, 2, 176, 0), (4, 5, 2, 176, 6), (6, 9, 4, 1352, 3)]
+    codecs = [pusch.PuschCodec(cell, UlGrant(n, start, 0, qm, tbs), 0x1234 + i, 2,
+                               n_cqi_bits=4 if qm == 4 else 0, with_ack=True, device="cpu")
+              for i, (n, start, qm, tbs, _) in enumerate(ues)]
+    rng = np.random.default_rng(3)
+    wave = sum(c.encode_sf_uci(rng.integers(0, 2, c.grant.tbs).astype(np.uint8),
+                               cqi_bits=np.array([1, 0, 0, 1], np.uint8) if c.n_cqi_bits else None,
+                               ack=True, cyclic_shift=ue[4]) for c, ue in zip(codecs, ues))
+    iq = torch.as_tensor(enb_tx.awgn(rng, np.stack([wave] * 2), 20.0)[0])
+    rx = pusch.PuschCell(cell, codecs, [ue[4] for ue in ues])
+
+    def step():
+        return [v for out in rx.decode(rx.dematch(iq)) for v in out], rx.decode_uci_sf()
+
+    plain = step()
+    rec, events = _recorded(step, tmp_path)
+    names = [e["name"] for e in events]
+    assert set(names) == set(PUSCH_PARENT) and set(names) <= set(trace.SPANS)
+    for e in events:
+        assert _parent(e, events) == PUSCH_PARENT[e["name"]], e["name"]
+    top = [e["name"] for e in sorted(events, key=lambda e: e["ts"])
+           if PUSCH_PARENT[e["name"]] is None]
+    assert top == CELL_SPANS
+    assert names.count("pusch.idft_group") == names.count("pusch.k_group") == 2
+    for a, b in zip(plain[0], rec[0], strict=True):
+        assert torch.equal(a, b)
+    assert all(bool(ok.all()) for ok in rec[0][1::3])
+    assert [bool(ack.all()) for _, ack in rec[1]] == [True] * 3
 
 
 def test_pusch_spans_record_nothing_without_a_profiler(monkeypatch):

@@ -292,13 +292,13 @@ def test_make_tm2_rx_matches_bench(early_exit):
     iq_p = np.stack([iq.real, iq.imag], -1).astype(np.float32)
     ref = np.asarray(jax.jit(bench.make_tm2_rx(cell, codec_r, sf, pays.astype(np.float32)))(
         jnp.asarray(iq_p)))[0, :3].tolist()
-    fn = rx.make_tm2_rx(_mine(cell), _mine(grant), sf, rnti, pays, early_exit, device="cpu")
-    got = {k: float(v) for k, v in fn(torch.as_tensor(iq)).items()}
+    fn = rx.make_tm2_rx(_mine(cell), _mine(grant), sf, rnti, early_exit, device="cpu")
+    got = {k: float(v) for k, v in rx.tb_stats(fn(torch.as_tensor(iq)), pays).items()}
     assert [got["n_ok"], got["bit_match"], got["mean_iters"]] == ref
     assert got["n_ok"] == 3 and got["bit_match"] == 1.0
     if early_exit:
-        forced = rx.make_tm2_rx(_mine(cell), _mine(grant), sf, rnti, pays, True, forced=True,
-                                device="cpu")(torch.as_tensor(iq))
+        forced = rx.tb_stats(rx.make_tm2_rx(_mine(cell), _mine(grant), sf, rnti, True,
+                                            forced=True, device="cpu")(torch.as_tensor(iq)), pays)
         assert float(forced["mean_iters"]) == float(forced["max_iters"]) == 8
         assert float(forced["n_ok"]) == 3 and float(forced["bit_match"]) == 1.0
 
