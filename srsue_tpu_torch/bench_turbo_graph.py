@@ -138,10 +138,8 @@ def run_sequence(calls, size: int | None) -> dict:
 
 def _ctx_capture(graph, pool, stream, body) -> list:
     """The capture as ``torch.cuda.graph`` makes it."""
-    from .kernels import bcjr
-
     with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
-        with bcjr.capturing() as calls:
+        with graphs.listing() as calls:
             body()
     return calls
 

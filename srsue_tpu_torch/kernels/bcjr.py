@@ -31,20 +31,19 @@ replacing ``decode_forced_tiled`` / ``decode_forced_loop_tiled``).
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
 raises. ``launches[name]`` counts the launches of each kernel instance
 (``"fused"`` for the fused half), and ``shapes[name]`` holds the (windows,
-lw) of [windows, lw] each instance was launched at. Under ``capturing`` (a
-CUDA graph's capture, which launches nothing) the wrappers' calls are only
-recorded, and ``count_replayed`` counts them again at each replay.
+lw) of [windows, lw] each instance was launched at; a CUDA graph's replay
+counts the launches its capture made (``utils.graphs.count_launch``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
 import torch
 
 from ..phy import turbo
+from ..utils import graphs
 from . import build
 
 _F32 = torch.float32
@@ -53,7 +52,6 @@ NORM_EVERY = 8  # trellis steps between state-0 normalisations (v2v3, v4, v5)
 
 launches = dict.fromkeys((*KERNELS, "fused"), 0)
 shapes: dict[str, set] = {name: set() for name in launches}
-_captured: list | None = None  # the (instance, shape) calls of the capture in progress
 
 
 # --------------------------------------------------------------- plain twins
@@ -206,32 +204,14 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _count(name: str, shape: tuple) -> None:
-    if _captured is not None:
-        _captured.append((name, shape))
-        return
+def _tally(call: tuple) -> None:
+    name, shape = call
     launches[name] += 1
     shapes[name].add(shape)
 
 
-@contextlib.contextmanager
-def capturing():
-    """Inside, the wrappers count nothing and list each call as (instance,
-    shape): a CUDA graph's capture (``turbo.decode``) launches nothing, and
-    each replay launches what the list says."""
-    global _captured
-    saved, _captured = _captured, []
-    try:
-        yield _captured
-    finally:
-        _captured = saved
-
-
-def count_replayed(calls: list) -> None:
-    """Count the launches of one replay of a graph whose capture listed
-    `calls` (``capturing``): a replay does not call the wrappers."""
-    for name, shape in calls:
-        _count(name, shape)
+def _count(name: str, shape: tuple) -> None:
+    graphs.count_launch(_tally, (name, shape))
 
 
 # ------------------------------------------------------------ [n, lw] half

@@ -7,10 +7,12 @@ are its plain PyTorch versions. ``launches`` counts the kernel's launches
 in both forms, ``llr_launches`` those of the LLR form alone, and ``shapes``
 holds the (form, qm, R, N, D) of each: form "softbuffer" or "llr", R the
 inverse table's width (0 for the LLR form), N the rows and D the output
-width. ``plan`` sizes a softbuffer launch: its tiles, clusters, shared
-memory and threads. ``demap_dematch_gather_cuda`` launches the softbuffer
-form's earlier design, one thread per output value gathering through L2,
-kept for the benchmark alone (``gather_launches``); no path calls it.
+width; a CUDA graph's replay counts the launches its capture made
+(``utils.graphs.count_launch``). ``plan`` sizes a softbuffer launch: its
+tiles, clusters, shared memory and threads. ``demap_dematch_gather_cuda``
+launches the softbuffer form's earlier design, one thread per output value
+gathering through L2, kept for the benchmark alone (``gather_launches``);
+no path calls it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import math
 
 import torch
 
+from ..utils import graphs
 from . import build
 
 QMS = (2, 4, 6)
@@ -152,6 +155,14 @@ def _noise(nv, sym: torch.Tensor, n: int, s: int):
     return grid, grid.stride(0), grid.stride(1), 0.0
 
 
+def _tally(shape: tuple) -> None:
+    """Count one launch at `shape` (form, qm, R, N, D)."""
+    global launches, llr_launches
+    launches += 1
+    llr_launches += shape[0] == "llr"
+    shapes.add(shape)
+
+
 def _launch(fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
@@ -201,7 +212,6 @@ def demap_dematch_cuda(sym: torch.Tensor, nv, qm: int, levels: torch.Tensor,
     device; nv a number or a float32 tensor that broadcasts against sym. One
     launch on the current stream, tiled by ``plan``; raises on any other
     input or CUDA error."""
-    global launches
     n, s, d, r, out = _softbuffer(sym, qm, levels, scr, inv, sym_map, lo, hi)
     if ranges is None:
         from ..phy.ratematch import segment_ranges  # imports this module
@@ -220,8 +230,7 @@ def demap_dematch_cuda(sym: torch.Tensor, nv, qm: int, levels: torch.Tensor,
                 _ptr(levels), qm, _ptr(scr), _ptr(sym_map), lo, hi - lo, _ptr(inv), r,
                 _ptr(ranges), seg, d, n, _ptr(out), p.tile, p.csize, p.bs, p.shift, p.rows,
                 p.threads, _stream(sym))
-    launches += 1
-    shapes.add(("softbuffer", qm, r, n, d))
+    graphs.count_launch(_tally, ("softbuffer", qm, r, n, d))
     return out
 
 
@@ -250,7 +259,6 @@ def demap_llr_cuda(sym: torch.Tensor, nv, qm: int, levels: torch.Tensor) -> torc
     max-log LLRs in transmit bit order; the same arguments as
     ``demap_dematch_cuda``. One launch; raises on any other input or CUDA
     error."""
-    global launches, llr_launches
     _check(sym, qm, levels)
     lead, s = sym.shape[:-1], sym.shape[-1]
     n = math.prod(lead)
@@ -261,7 +269,5 @@ def demap_llr_cuda(sym: torch.Tensor, nv, qm: int, levels: torch.Tensor) -> torc
     with torch.cuda.device(sym.device):
         _launch(build.load().lib.srsue_demap_llr, _ptr(sym), s, _ptr(grid), sn, ss, value,
                 _ptr(levels), qm, n, _ptr(out), _stream(sym))
-    launches += 1
-    llr_launches += 1
-    shapes.add(("llr", qm, 0, n, s * qm))
+    graphs.count_launch(_tally, ("llr", qm, 0, n, s * qm))
     return out

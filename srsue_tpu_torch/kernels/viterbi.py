@@ -2,7 +2,8 @@
 launch of the Hopper kernel ``csrc/viterbi.cu``. ``phy/convcode.py::decode``
 checks its input and calls it for CUDA tensors; ``convcode.decode_plain``
 is the kernel's plain PyTorch twin. ``launches`` counts the kernel's
-launches and ``shapes`` holds the (hypotheses, n) of each.
+launches and ``shapes`` holds the (hypotheses, n) of each; a CUDA graph's
+replay counts the launches its capture made (``utils.graphs.count_launch``).
 """
 
 from __future__ import annotations
@@ -11,16 +12,22 @@ import ctypes
 
 import torch
 
+from ..utils import graphs
 from . import build
 
 launches = 0
 shapes: set = set()
 
 
+def _tally(shape: tuple) -> None:
+    global launches
+    launches += 1
+    shapes.add(shape)
+
+
 def viterbi_cuda(llrs: torch.Tensor) -> torch.Tensor:
     """[B, n, 3] contiguous float32 CUDA tensor, 1 <= n <= 96 -> [B, n]
     uint8, one launch on the current stream; raises on any CUDA error."""
-    global launches
     B, n, _ = llrs.shape
     out = torch.empty(B, n, dtype=torch.uint8, device=llrs.device)
     with torch.cuda.device(llrs.device):
@@ -29,6 +36,5 @@ def viterbi_cuda(llrs: torch.Tensor) -> torch.Tensor:
             ctypes.c_void_p(torch.cuda.current_stream(llrs.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {rc} (B={B}, n={n})")
-    launches += 1
-    shapes.add((B, n))
+    graphs.count_launch(_tally, (B, n))
     return out

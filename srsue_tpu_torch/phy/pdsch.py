@@ -268,7 +268,7 @@ def equalized(cell: Cell, codec: PdschCodec, subframe: int, iq: torch.Tensor):
             return _equalized(cell, codec, subframe, iq)
         dev = iq.device
         return frontend.run(("pdsch.equalized", cell, subframe, codec.re_key),
-                            lambda x: _equalized(cell, codec, subframe, x), iq, dev,
+                            lambda x: _equalized(cell, codec, subframe, x), (iq,), dev,
                             lambda: [chest.device_tables(cell, 0, subframe, dev), codec._re_idx])
 
 

@@ -18,6 +18,17 @@ OFDM demodulation for all of them, each allocation's estimate and ZF, one
 IDFT for all the allocations of one size, each allocation's demap, and one
 ``turbo.decode`` for the blocks of one K (and one CRC) of every UE.
 
+On a card both receivers replay their front end (span ``pusch.frontend``)
+and their demap (``pusch.demap_dematch``) as one CUDA graph each once the
+stage's key comes back (``phy/frontend.py``). The keys hold values, not
+objects: each codec's ``key`` (cell, grant, RNTI, subframe, UCI layout),
+for the front end also the DMRS shifts and the noise, and the inputs'
+shapes, so codecs built alike share graphs (the eNB builds one a TTI). The
+front end keys on the whole receive, not on its bands alone: at B=1 a
+capture costs about three eager calls, and a band that comes back under
+other grants replays too seldom to repay it. A noise given as a tensor or
+an array stays eager.
+
 Carried over from the reference unchanged: no group or sequence hopping
 (u = cell_id mod 30, v = 0), no 7.5 kHz uplink frequency shift (the
 uplink grid goes through the downlink's OFDM modulator), DMRS for 3 PRB
@@ -37,7 +48,7 @@ import torch
 
 from ..utils.device import resolve, to_host
 from ..utils.trace import annotate
-from . import modulation, ofdm, ratematch, segmentation, seq, turbo, uci
+from . import frontend, modulation, ofdm, ratematch, segmentation, seq, turbo, uci
 from .cell import Cell, UlGrant
 from .pdsch import FILLER_LLR, blk_crc_matrix
 
@@ -119,8 +130,11 @@ class PuschCodec:
         # matched over every non-CQI position and punctured by the ACK
         self.n_cqi_bits, self.with_ack, self.cqi_rep = n_cqi_bits, with_ack, cqi_rep
         n_cqi_syms = -(-20 * cqi_rep // self.qm) if n_cqi_bits else 0
-        self.cqi_pos, self.ack_pos, self.data_pos = uci_layout(
-            self.m_sc, n_cqi_syms, ack_syms if with_ack else 0)
+        n_ack_syms = ack_syms if with_ack else 0
+        self.cqi_pos, self.ack_pos, self.data_pos = uci_layout(self.m_sc, n_cqi_syms, n_ack_syms)
+        # the receive's configuration by value: its graphs' keys
+        self.key = (cell, grant.prb_start, grant.n_prb, self.qm, grant.tbs, grant.rv, rnti,
+                    subframe, n_cqi_bits, cqi_rep if n_cqi_bits else 0, n_ack_syms)
         self.G = len(self.data_pos) * self.qm
         self._ack_erase = np.repeat(~np.isin(self.data_pos, self.ack_pos),
                                     self.qm).astype(np.float32)
@@ -256,10 +270,9 @@ class PuschCodec:
         """IQ [..., sf_len] (a tensor, or numpy moved to the codec's device)
         -> (syms [..., n_re] complex64, nv [..., n_re] float32): DMRS LS
         estimate, ZF and the IDFT, with the reference's per-symbol noise."""
-        iq = _iq_tensor(iq, self.device)
         with annotate("pusch.frontend"):
-            return _equalize([self], ofdm.demodulate(self.cell, iq), noise_var,
-                             [cyclic_shift])[0]
+            return _equalized([self], _iq_tensor(iq, self.device), noise_var,
+                              [cyclic_shift])[0]
 
     def _uci_llrs(self, syms: torch.Tensor, nv: torch.Tensor, pos: torch.Tensor):
         """[..., len(pos), qm] LLRs of the symbols at stream positions pos."""
@@ -276,17 +289,17 @@ class PuschCodec:
         (each dematched by the codec of its rv) is the eNB's HARQ combining.
         The UCI symbols' LLRs (``modulation.demodulate_soft``) are kept for
         ``decode_uci`` and ``decode_uci_sf``."""
-        syms, nv = self.equalize_sf(iq, noise_var, cyclic_shift)
+        eq = self.equalize_sf(iq, noise_var, cyclic_shift)
         with annotate("pusch.demap_dematch"):
-            return self._dematch(syms, nv)
+            return _dematched([self], [eq])[0]
 
-    def _dematch(self, syms: torch.Tensor, nv: torch.Tensor) -> list:
-        """Equalized symbols and noise [..., n_re] -> per-code-block
-        softbuffers, and the UCI symbols' LLRs kept."""
+    def _dematch(self, syms: torch.Tensor, nv: torch.Tensor):
+        """Equalized symbols and noise [..., n_re] -> (each K-group's
+        softbuffers [..., count, 3(K+4)], the UCI symbols' LLRs (cqi | None,
+        ack | None))."""
         lead = syms.shape[:-1]
-        self._last_uci_llrs = (
-            self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
-            self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
+        uci_llrs = (self._uci_llrs(syms, nv, self._cqi_pos) if self.n_cqi_bits else None,
+                    self._uci_llrs(syms, nv, self._ack_pos) if self.with_ack else None)
         bufs = []
         for (k, first, count, lo, hi, _), inv32, ranges in zip(self.groups, self._inv32,
                                                                 self._ranges):
@@ -295,8 +308,13 @@ class PuschCodec:
                 lead + (count, 3 * (k + 4)))
             if first == 0 and self.plan.f:
                 buf[..., 0, :self.plan.f] += FILLER_LLR
-            bufs.extend(buf.unbind(-2))
-        return bufs
+            bufs.append(buf)
+        return bufs, uci_llrs
+
+    def _tables(self) -> list:
+        """The device tables ``_dematch`` reads."""
+        return [self._scr_erase, self._inv32, self._ranges, self._data_pos, self._cqi_pos,
+                self._ack_pos, modulation.levels(self.qm, self.device)]
 
     def decode_softbuffers(self, bufs: list):
         """Per-block softbuffers -> (payload [..., tbs] uint8, tb_ok [...] bool,
@@ -390,12 +408,11 @@ class PuschCell:
         """IQ [..., sf_len] (a tensor, or numpy moved to the device) -> each
         UE's per-code-block softbuffers, each [..., 3(K+4)]; each UE's UCI
         LLRs kept for ``decode_uci_sf``."""
-        iq = _iq_tensor(iq, self.device)
         with annotate("pusch.frontend"):
-            eq = _equalize(self.codecs, ofdm.demodulate(self.cell, iq), noise_var,
-                           self.cyclic_shifts)
+            eq = _equalized(self.codecs, _iq_tensor(iq, self.device), noise_var,
+                            self.cyclic_shifts)
         with annotate("pusch.demap_dematch"):
-            return [c._dematch(syms, nv) for c, (syms, nv) in zip(self.codecs, eq)]
+            return _dematched(self.codecs, eq)
 
     def decode(self, bufs: list) -> list:
         """Each UE's softbuffers -> each UE's (payload [..., tbs] uint8, tb_ok
@@ -413,6 +430,50 @@ def _iq_tensor(iq, device: torch.device) -> torch.Tensor:
     if isinstance(iq, torch.Tensor):
         return iq
     return torch.as_tensor(np.asarray(iq, np.complex64), device=device)
+
+
+def _graphed(codecs: list, noise_var=None) -> bool:
+    """Whether a stage of these codecs replays as a CUDA graph: on a card,
+    with the noise, where the stage takes it, a number (a key holds it by
+    value; a tensor or an array stays eager)."""
+    return codecs[0].device.type == "cuda" and (
+        noise_var is None or isinstance(noise_var, (int, float, np.floating)))
+
+
+def _equalized(codecs: list, iq: torch.Tensor, noise_var, shifts: list) -> list:
+    """Each codec's (syms, nv) from IQ [..., sf_len]: the OFDM demodulation,
+    then ``_equalize``. On a card one CUDA graph once the codecs' keys, the
+    shifts, the noise and the input shape come back."""
+    cell = codecs[0].cell
+
+    def body(x):
+        return _equalize(codecs, ofdm.demodulate(cell, x), noise_var, shifts)
+
+    if not _graphed(codecs, noise_var):
+        return body(iq)
+    key = ("pusch.frontend",) + tuple(c.key for c in codecs) + (tuple(shifts), noise_var)
+    return frontend.run(key, body, (iq,), codecs[0].device, lambda: [
+        (c._dmrs_conj(cs), c._data_sym) for c, cs in zip(codecs, shifts)])
+
+
+def _dematched(codecs: list, eq: list) -> list:
+    """Each codec's per-code-block softbuffers from its (syms, nv), its UCI
+    symbols' LLRs kept for ``decode_uci`` and ``decode_uci_sf``. On a card one
+    CUDA graph once the codecs' keys and the inputs' shapes come back; its
+    K-groups and LLRs are then this call's clones. The blocks are each
+    K-group's rows (views), which ``_decode`` joins again with no copy."""
+    def body(*xs):
+        return [c._dematch(xs[2 * i], xs[2 * i + 1]) for i, c in enumerate(codecs)]
+
+    xs = tuple(t for pair in eq for t in pair)
+    if not _graphed(codecs):
+        out = body(*xs)
+    else:
+        out = frontend.run(("pusch.demap_dematch",) + tuple(c.key for c in codecs), body, xs,
+                           codecs[0].device, lambda: [c._tables() for c in codecs])
+    for c, (_, uci_llrs) in zip(codecs, out):
+        c._last_uci_llrs = uci_llrs
+    return [[b for group in groups for b in group.unbind(-2)] for groups, _ in out]
 
 
 def _equalize(codecs: list, grid: torch.Tensor, noise_var: float, shifts: list) -> list:
@@ -448,15 +509,30 @@ def _k_plan(codecs: list) -> list:
     return list(plan.values())
 
 
+def _rows(blocks: list) -> torch.Tensor:
+    """Blocks [..., D] stacked on a new axis -2; where they are the
+    consecutive rows of one tensor, as the demap leaves one codec's K-group,
+    that tensor itself, a view, with no copy."""
+    b0, d = blocks[0], blocks[0].shape[-1]
+    at = b0.untyped_storage().data_ptr()
+    if b0.stride(-1) == 1 and all(
+            b.untyped_storage().data_ptr() == at and b.dtype == b0.dtype and b.shape == b0.shape
+            and b.stride() == b0.stride() and b.storage_offset() == b0.storage_offset() + i * d
+            for i, b in enumerate(blocks)):
+        return b0.as_strided(b0.shape[:-1] + (len(blocks), d), b0.stride()[:-1] + (d, 1))
+    return torch.stack(blocks, -2)
+
+
 def _decode(codecs: list, plan: list, bufs: list) -> list:
     """Each codec's per-block softbuffers -> each codec's (payload, tb_ok,
     iters): one ``turbo.decode`` per entry of `plan`, its blocks stacked in
-    plan order, the results split back and each codec's blocks put in order."""
+    plan order (``_rows``), the results split back and each codec's blocks
+    put in order."""
     parts = [{} for _ in codecs]  # codec -> first block -> (hard, ok, iters)
     with annotate("pusch.turbo"):
         for k, crc_m, members in plan:
-            buf = torch.stack([b for u, first, count in members
-                               for b in bufs[u][first:first + count]], -2)
+            buf = _rows([b for u, first, count in members
+                         for b in bufs[u][first:first + count]])
             lead = buf.shape[:-2]
             with annotate("pusch.k_group"):
                 hard, it, ok = turbo.decode(buf.reshape(-1, 3, k + 4), k,

@@ -354,16 +354,6 @@ class _Loop:
         self.done |= ok
 
 
-def _capture(graph, pool, stream, body) -> list:
-    """Capture `body` (``graphs.capture``); returns the half-iteration
-    launches it made (``bcjr.capturing``), which each replay makes again."""
-    from ..kernels import bcjr
-
-    with bcjr.capturing() as calls:
-        graphs.capture(graph, pool, stream, body)
-    return calls
-
-
 class _Graphed:
     """A ``_Loop`` captured as two CUDA graphs at one input shape: ``prep``
     copies the softbuffers and the CRC matrix into static inputs and replays
@@ -384,25 +374,19 @@ class _Graphed:
         self.loop = _Loop(k, lw, kernel, dev)
         self.prep_g, self.iter_g = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with annotate("turbo.graph_capture"), torch.cuda.device(dev):
-            self.prep_calls = _capture(self.prep_g, pool, stream,
-                                       lambda: self.loop.prep(self.d_in, self.crc))
-            self.iter_calls = _capture(self.iter_g, pool, stream, self.loop.iterate)
+            self.prep_calls = graphs.capture(self.prep_g, pool, stream,
+                                             lambda: self.loop.prep(self.d_in, self.crc))
+            self.iter_calls = graphs.capture(self.iter_g, pool, stream, self.loop.iterate)
         self.bytes = torch.cuda.memory_allocated(dev) - before
 
     def prep(self, d_llrs: torch.Tensor, crc_m: torch.Tensor | None) -> None:
-        from ..kernels import bcjr
-
         self.d_in.copy_(d_llrs)
         if crc_m is not None:
             self.crc.copy_(crc_m)
-        self.prep_g.replay()
-        bcjr.count_replayed(self.prep_calls)
+        graphs.replay(self.prep_g, self.prep_calls)
 
     def iterate(self) -> None:
-        from ..kernels import bcjr
-
-        self.iter_g.replay()
-        bcjr.count_replayed(self.iter_calls)
+        graphs.replay(self.iter_g, self.iter_calls)
 
 
 def decode(d_llrs: torch.Tensor, k: int, n_iters: int = 8,

@@ -87,7 +87,7 @@ class UeDl:
                 return self._front_end_ops(self._iq(iq), subframe)
             x = self._iq(iq) if torch.is_tensor(iq) else torch.as_tensor(iq, dtype=torch.complex64)
             return frontend.run(("ue_dl.front_end", self.cell, subframe),
-                                lambda x: self._front_end_ops(x, subframe), x, self.device,
+                                lambda x: self._front_end_ops(x, subframe), (x,), self.device,
                                 lambda: self._tables(subframe))
 
     def _front_end_ops(self, iq: torch.Tensor, subframe: int) -> Front:

@@ -9,10 +9,11 @@ and go out with its trace. ``SPANS`` names every span the receive path
 records (``Phy.work`` records the frontend and control stages' spans
 too, without ``ue_dl.process``, ``ue_dl.control`` and ``ue_dl.dci``;
 ``rx.make_rx`` records ``ue_dl.frontend`` and ``ue_dl.control`` as roots);
-``turbo.exit_check``, ``turbo.graph_capture``, the frontends'
-``frontend.graph_capture`` and ``frontend.graph_replay``, and the uplink's
-``pusch.idft_group`` and ``pusch.k_group`` are also counters (spans counted
-per step).
+``turbo.exit_check``, ``turbo.graph_capture``, the frontends' and the
+uplink stages' ``frontend.graph_capture`` and ``frontend.graph_replay``, and
+the uplink's ``pusch.idft_group`` (opened where its front end runs on the
+host: eagerly or in a capture, not in a replay) and ``pusch.k_group`` are
+also counters (spans counted per step).
 
 ``ProfilerTrace`` stands in for the reference's ``XlaTrace`` (jax.profiler)
 with the same contract: ``logdir``, ``active``, an ``errors`` list, and a
@@ -43,8 +44,8 @@ SPANS = (
     "ue_dl.pdsch",           # one grant's PDSCH chain
     "ue_dl.to_host",         # ue_dl.pdsch's child: payload, flags and iterations read
     "pdsch.frontend",        # the grant-known frontend (pdsch.equalized)
-    "frontend.graph_capture",  # counter: either frontend's capture as one CUDA graph
-    "frontend.graph_replay",   # counter: either frontend's replay of its graph, copies in and out
+    "frontend.graph_capture",  # counter: a frontend's or uplink stage's capture as one CUDA graph
+    "frontend.graph_replay",   # counter: its replay of the graph, copies in and out
     "pdsch.demap_dematch",   # every K-group's demap kernel
     "pdsch.turbo",           # the turbo driver over every K-group
     "turbo.iteration",       # one pass of a turbo loop
@@ -53,7 +54,7 @@ SPANS = (
     "pdsch.tb_crc",          # the TB CRC
     "shard.exchange",        # shard_decode's all_reduce through its check on the host
     "pusch.frontend",        # equalize_sf, PuschCell.dematch: OFDM, DMRS estimates, ZF, the IDFTs
-    "pusch.idft_group",      # counter: one IDFT over the allocations of one size
+    "pusch.idft_group",      # counter: one IDFT over the allocations of one size (eager, capture)
     "pusch.demap_dematch",   # the UCI symbols' LLRs and every K-group's demap kernel
     "pusch.turbo",           # decode_softbuffers: each K-group's stack and turbo.decode
     "pusch.k_group",         # counter: one turbo.decode over one K's blocks of every UE

@@ -823,9 +823,9 @@ def frontend_graphs(cuda_device, monkeypatch):
             super().__init__(*args)
             counts["capture"] += 1
 
-        def __call__(self, x):
+        def __call__(self, *xs):
             counts["replay"] += 1
-            return super().__call__(x)
+            return super().__call__(*xs)
 
     monkeypatch.setattr(frontend, "_Replayed", Counted)
     return counts
@@ -999,3 +999,127 @@ def test_frontend_budget_drops_least_recently_used(frontend_graphs, cuda_device,
     for sf in (2, 1):
         assert _close(ue.front_end(x, sf), eager[sf])  # 2 dropped: eager; 1 replays
     assert held() == [1] and frontend_graphs == {"capture": 5, "replay": 6}
+
+
+# ------------------------------------------------------- the uplink's graphs
+def _ul_receiver(which: str, dev):
+    """On `dev`: "cell", ``PuschCell`` over perfbench's lte20_pusch_7ue_mixed
+    (seven allocations, 16QAM and QPSK, each its DMRS shift and ACK, two with
+    CQI); "codec", its first UE's ``PuschCodec`` (25 PRB 16QAM, CQI and ACK)
+    alone, at its shift. Returns (receiver, its codecs, their shifts)."""
+    import json
+    from pathlib import Path
+
+    from srsue_tpu_torch.phy.cell import UlGrant
+    from srsue_tpu_torch.phy.pusch import PuschCell, PuschCodec
+
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "perfbench" / "configs" /
+                      "lte20_pusch_7ue_mixed.json").read_text())
+    cell = Cell(n_prb=cfg["n_prb"], cell_id=cfg["cell_id"], n_ports=cfg["n_ports"])
+    ues = cfg["ues"][:1] if which == "codec" else cfg["ues"]
+    codecs = [PuschCodec(cell, UlGrant(n_prb=ue["n_prb"], prb_start=ue["prb_start"],
+                                       mcs=ue["mcs"], mod_order=ue["qm"], tbs=ue["tbs"],
+                                       rv=cfg["rv"]),
+                         ue["rnti"], cfg["subframe"], n_turbo_iters=cfg["turbo_iters"],
+                         n_cqi_bits=ue["cqi_bits"], with_ack=ue["ack_symbols"] > 0,
+                         cqi_rep=ue["cqi_repetition"], ack_syms=ue["ack_symbols"],
+                         device=dev) for ue in ues]
+    shifts = [ue["cyclic_shift"] for ue in ues]
+    rx = codecs[0] if which == "codec" else PuschCell(cell, codecs, shifts)
+    return rx, codecs, shifts
+
+
+def _ul_iq(codecs, shifts, batch: int, seed: int):
+    """`batch` subframes [batch, sf_len] in host memory, each UE its own TB,
+    CQI and ACK, at 20 dB per allocated subcarrier, and the noise."""
+    rng = np.random.default_rng(seed)
+    td = np.stack([sum(c.encode_sf_uci(
+        rng.integers(0, 2, c.grant.tbs).astype(np.uint8),
+        cqi_bits=rng.integers(0, 2, c.n_cqi_bits).astype(np.uint8) if c.n_cqi_bits else None,
+        ack=bool(rng.integers(2)), cyclic_shift=cs) for c, cs in zip(codecs, shifts))
+        for _ in range(batch)])
+    nv = float(np.mean(np.abs(td) ** 2)) * codecs[0].cell.nfft / sum(
+        c.m_sc for c in codecs) / 100.0
+    noisy = td + np.sqrt(nv / 2) * (rng.standard_normal(td.shape)
+                                    + 1j * rng.standard_normal(td.shape))
+    return noisy.astype(np.complex64), nv
+
+
+def _ul_step(which, rx, codecs, shifts, iq, nv):
+    """The receive as the benchmark's step runs it: (softbuffers, each
+    codec's UCI LLRs, ``decode_uci_sf``, ``decode``), and the demap kernel's
+    launches it counted."""
+    from srsue_tpu_torch.kernels import demap
+
+    before = demap.launches
+    if which == "codec":
+        bufs = [rx.dematch_sf(iq, nv, shifts[0])]
+        uci, decoded = [rx.decode_uci_sf()], [rx.decode_softbuffers(bufs[0])]
+    else:
+        bufs = rx.dematch(iq, nv)
+        uci, decoded = rx.decode_uci_sf(), rx.decode(bufs)
+    return (bufs, [c._last_uci_llrs for c in codecs], uci, decoded), demap.launches - before
+
+
+def _equal(got, want) -> None:
+    """Every tensor of `got` equals its twin in `want` bit for bit (None
+    where `want` has None)."""
+    if want is None or isinstance(want, torch.Tensor):
+        assert (got is None) == (want is None)
+        assert want is None or (got.dtype == want.dtype and torch.equal(got, want))
+        return
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _equal(g, w)
+
+
+@pytest.mark.parametrize("which", ["cell", "codec"])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_uplink_replay_equals_eager(frontend_graphs, cuda_device, which, batch):
+    """The uplink receive's first call at a key runs eagerly, its second
+    captures its two stages (front end, demap) and replays them, later ones
+    replay; softbuffers, UCI LLRs, ``decode_uci_sf`` and ``decode`` equal the
+    eager call's bit for bit, and each call counts the eager call's demap
+    launches."""
+    rx, codecs, shifts = _ul_receiver(which, cuda_device)
+    iq, nv = _ul_iq(codecs, shifts, batch, seed=23)
+    x = torch.as_tensor(iq, device=cuda_device)
+    eager, launched = _ul_step(which, rx, codecs, shifts, x, nv)
+    assert frontend_graphs == {"capture": 0, "replay": 0}
+    assert launched == sum(len(c.groups) + bool(c.n_cqi_bits) + c.with_ack for c in codecs)
+    for i in range(3):
+        got, n = _ul_step(which, rx, codecs, shifts, x, nv)
+        assert frontend_graphs == {"capture": 2, "replay": 2 * (i + 1)} and n == launched
+        _equal(got, eager)
+    assert all(bool(ok.all()) for _, ok, _ in eager[3])
+
+
+def test_uplink_held_results_survive(frontend_graphs, cuda_device, monkeypatch):
+    """Results held from one call of the 7-UE receive stay as they were
+    after a replay on other IQ by a receiver built alike, and after turbo
+    decodes reuse the pool; ``decode_uci_sf`` then reads the later call's
+    LLRs, and both calls equal their eager twins bit for bit."""
+    from srsue_tpu_torch.utils import graphs
+
+    rx, codecs, shifts = _ul_receiver("cell", cuda_device)
+    a, nv = _ul_iq(codecs, shifts, 4, seed=31)
+    b, _ = _ul_iq(codecs, shifts, 4, seed=37)
+    a, b = (torch.as_tensor(v, device=cuda_device) for v in (a, b))
+    eager = {}
+    for name, x in (("a", a), ("b", b)):  # each the first call of a fresh cache
+        monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
+        eager[name] = _ul_step("cell", rx, codecs, shifts, x, nv)[0]
+    monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
+    _ul_step("cell", rx, codecs, shifts, a, nv)
+    held, _ = _ul_step("cell", rx, codecs, shifts, a, nv)
+    assert frontend_graphs["capture"] == 2
+    other, other_codecs, _ = _ul_receiver("cell", cuda_device)
+    later, _ = _ul_step("cell", other, other_codecs, shifts, b, nv)
+    assert frontend_graphs == {"capture": 2, "replay": 4}
+    d, m = _card_turbo_inputs(cuda_device)
+    for _ in range(3):
+        turbo.decode(d, 512, 8, m)
+    _equal(held, eager["a"])
+    _equal(later, eager["b"])
+    _equal(other.decode_uci_sf(), eager["b"][2])
+    _equal(rx.decode_uci_sf(), eager["a"][2])

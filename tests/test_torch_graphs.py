@@ -1,17 +1,18 @@
 """The one cache of the port's CUDA graphs (``utils/graphs.py``) as the turbo
 driver and the receive frontends (``phy/frontend.py``) use it, on the CPU
-with stand-ins for the captures: what a frontend's key holds, the turbo's
-and the frontends' keys in one LRU and one memory budget, and the tables a
-capture holds. The CPU frontends run the operations they ran before the
-graphs, and never enter the cache. The card's side is in
+with stand-ins for the captures: what a frontend's key holds (the uplink's
+too: by value, so codecs built alike share graphs), the turbo's and the
+frontends' keys in one LRU and one memory budget, and the tables a capture
+holds. The CPU frontends and uplink receivers run the operations they ran
+before the graphs, and never enter the cache. The card's side is in
 ``tests/test_torch_cuda.py``. Imports no JAX."""
 
 import numpy as np
 import pytest
 import torch
 
-from srsue_tpu_torch.phy import chest, control, equalize, frontend, ofdm, pdsch
-from srsue_tpu_torch.phy.cell import Cell
+from srsue_tpu_torch.phy import chest, control, equalize, frontend, ofdm, pdsch, pusch
+from srsue_tpu_torch.phy.cell import Cell, UlGrant
 from srsue_tpu_torch.phy.pdsch import PdschCodec
 from srsue_tpu_torch.phy.ra import dl_grant
 from srsue_tpu_torch.phy.ue_dl import UeDl
@@ -27,13 +28,13 @@ def cache(monkeypatch):
     made = []
 
     class Fake:
-        def __init__(self, body, x, dev, tables, pool, stream):
-            self.device, self.pool, self.bytes = dev, pool, x.numel()
+        def __init__(self, body, xs, dev, tables, pool, stream):
+            self.device, self.pool, self.bytes = dev, pool, sum(x.numel() for x in xs)
             self.body, self.holds = body, tables()
             made.append(self)
 
-        def __call__(self, x):
-            return self.body(x.to(self.device))
+        def __call__(self, *xs):
+            return self.body(*(x.to(self.device) for x in xs))
 
     pools = iter(range(1, 100))
     monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
@@ -45,7 +46,42 @@ def cache(monkeypatch):
 
 
 def _run(key, x, body=lambda x: (x * 2, {"m": x.sum()}), tables=lambda: ["table"]):
-    return frontend.run(key, body, x, CPU, tables)
+    return frontend.run(key, body, (x,), CPU, tables)
+
+
+def test_one_replay_counts_every_kernel_its_capture_launched(monkeypatch):
+    """A capture lists the launches of whichever hand-written kernels its
+    body made (``graphs.listing``) and counts none; each ``graphs.replay``
+    counts them in each kernel's own counters."""
+    from srsue_tpu_torch.kernels import bcjr, demap, viterbi
+
+    monkeypatch.setattr(bcjr, "launches", dict.fromkeys(bcjr.launches, 0))
+    monkeypatch.setattr(bcjr, "shapes", {name: set() for name in bcjr.launches})
+    for module, names in ((demap, ("launches", "llr_launches")), (viterbi, ("launches",))):
+        for name in names:
+            monkeypatch.setattr(module, name, 0)
+        monkeypatch.setattr(module, "shapes", set())
+    with graphs.listing() as launches:
+        bcjr._count("r2max", (6, 64))
+        graphs.count_launch(demap._tally, ("softbuffer", 4, 3, 256, 18444))
+        graphs.count_launch(demap._tally, ("llr", 2, 0, 256, 96))
+        graphs.count_launch(viterbi._tally, (4, 40))
+    assert (bcjr.launches["r2max"], demap.launches, viterbi.launches) == (0, 0, 0)
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    graph = Graph()
+    for _ in range(2):
+        graphs.replay(graph, launches)
+    assert graph.replays == 2
+    assert (bcjr.launches["r2max"], demap.launches, demap.llr_launches, viterbi.launches) == (
+        2, 4, 2, 2)
+    assert bcjr.shapes["r2max"] == {(6, 64)} and viterbi.shapes == {(4, 40)}
+    assert demap.shapes == {("softbuffer", 4, 3, 256, 18444), ("llr", 2, 0, 256, 96)}
 
 
 def test_frontend_key_holds_the_input_shape_and_dtype(cache):
@@ -70,9 +106,11 @@ def test_frontend_key_holds_the_input_shape_and_dtype(cache):
 
 
 def test_turbo_and_frontend_keys_share_one_lru(cache, monkeypatch):
-    """The turbo driver's keys and the frontends' enter one LRU of ``SIZE``
-    keys: a frontend key that comes back after ``SIZE`` turbo keys runs
-    eagerly again, one that comes back within them captures."""
+    """The turbo driver's keys and the frontends' share one cache, each
+    caller's waiting keys in a window of its own ``SIZE``: a frontend key
+    that comes back after ``SIZE`` turbo keys captures, one that comes back
+    after ``SIZE`` other keys of its frontend runs eagerly again. Their keys
+    holding graphs are one LRU (the budget's, below)."""
     monkeypatch.setattr(graphs.GraphCache, "SIZE", 3)
     x = torch.ones(2, dtype=torch.complex64)
 
@@ -83,14 +121,16 @@ def test_turbo_and_frontend_keys_share_one_lru(cache, monkeypatch):
     def turbo_key(i):  # the form of turbo.decode's keys
         return (CPU, (1, 3, 44), torch.float32, 40, 40, "r2max", (40, 24 + i))
 
-    _run(("f",), x)
+    _run(("f", 0), x)
     for i in range(3):
         assert graphs.GRAPHS.get(turbo_key(i), CPU, Turbo) is None
-    _run(("f",), x)
-    assert cache == []  # dropped by the turbo keys: eager again
+    _run(("f", 0), x)
+    assert len(cache) == 1  # the turbo keys waited in their own window
+    for i in range(1, 5):
+        _run(("f", i), x)
+    _run(("f", 1), x)
+    assert len(cache) == 1  # dropped by the frontend's own keys: eager again
     graphs.GRAPHS.get(turbo_key(2), CPU, Turbo)
-    _run(("f",), x)
-    assert len(cache) == 1
     assert isinstance(graphs.GRAPHS.keys[turbo_key(2)], Turbo)
 
 
@@ -153,7 +193,7 @@ def _old_front_end(cell, iq, subframe):
 _NO_WORK = {"aten::as_strided", "aten::view", "aten::reshape", "aten::slice", "aten::select",
             "aten::unsqueeze", "aten::expand", "aten::alias", "aten::narrow", "aten::flatten",
             "aten::lift_fresh", "aten::to", "aten::real", "aten::view_as_real",
-            "aten::_reshape_alias", "aten::detach", "aten::squeeze"}
+            "aten::_reshape_alias", "aten::detach", "aten::squeeze", "aten::unbind"}
 
 
 def _ops(fn):
@@ -164,6 +204,8 @@ def _ops(fn):
 
 
 def _flat(out):
+    if out is None:
+        return []
     if isinstance(out, torch.Tensor):
         return [out]
     if isinstance(out, dict):
@@ -239,3 +281,152 @@ def test_clone_copies_every_output():
     for a, b in zip(_flat(got), _flat(out), strict=True):
         assert a.data_ptr() != b.data_ptr()
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ----------------------------------------------------------------- the uplink
+# two UEs in a 25 PRB subframe: (n_prb, prb_start, qm, tbs, cyclic shift, CQI bits)
+UL_UES = ((12, 1, 4, 4968, 0, 4), (6, 13, 2, 600, 6, 0))
+
+
+def _ul_rx(ues=UL_UES, rv=0, ack_syms=4, cqi_rep=2):
+    """A ``PuschCell`` of `ues` on the CPU, each with its ACK."""
+    cell = Cell(n_prb=25, cell_id=301)
+    codecs = [pusch.PuschCodec(cell, UlGrant(n, start, 0, qm, tbs, rv), 0x1234 + i, 2,
+                               n_cqi_bits=cqi, with_ack=True, cqi_rep=cqi_rep,
+                               ack_syms=ack_syms, device="cpu")
+              for i, (n, start, qm, tbs, _, cqi) in enumerate(ues)]
+    return pusch.PuschCell(cell, codecs, [ue[4] for ue in ues])
+
+
+def _ul_iq(batch=2, seed=5):
+    rng = np.random.default_rng(seed)
+    n = Cell(n_prb=25, cell_id=301).sf_len
+    return torch.as_tensor((rng.standard_normal((batch, n)) + 1j * rng.standard_normal(
+        (batch, n))).astype(np.complex64))
+
+
+@pytest.fixture
+def card_keys(cache, monkeypatch):
+    """The uplink's stages take the card's branch on the CPU (the stand-in
+    captures run their bodies); returns a function of a receive call that
+    gives the keys it entered, in order, and its result."""
+    monkeypatch.setattr(pusch, "_graphed", lambda codecs, noise_var=None: True)
+
+    def keys(call):
+        before = list(graphs.GRAPHS.keys)
+        out = call()
+        return [k for k in graphs.GRAPHS.keys if k not in before], out
+    return keys
+
+
+@pytest.mark.parametrize("receiver", ["codec", "cell"])
+def test_uplink_codecs_built_alike_share_graphs(card_keys, cache, receiver):
+    """An eNB builds a ``PuschCodec`` a TTI: a second receiver built alike
+    enters no key of its own and captures the two graphs (front end, demap)
+    of the first one's keys, a third replays them; each gives the eager
+    softbuffers and, from its own codecs, the UCI."""
+    iq = _ul_iq()
+
+    def call(rx):
+        if receiver == "codec":
+            c = rx.codecs[0]
+            return lambda: ([c.dematch_sf(iq, 1e-3, rx.cyclic_shifts[0])], [c._uci(False)])
+        return lambda: (rx.dematch(iq, 1e-3), rx.decode_uci_sf())
+
+    keys, eager = card_keys(call(_ul_rx()))
+    assert [k[0] for k in keys] == ["pusch.frontend", "pusch.demap_dematch"] and not cache
+    for _ in range(2):  # the capture, then a replay
+        new, got = card_keys(call(_ul_rx()))
+        assert new == [] and len(cache) == 2
+        for a, b in zip(_flat(got), _flat(eager), strict=True):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert list(graphs.GRAPHS.keys) == keys
+
+
+# each change, and which of the two stages' keys it changes
+UL_CHANGES = {
+    "cyclic shift": ({"ues": ((12, 1, 4, 4968, 3, 4), UL_UES[1])}, "frontend"),
+    "noise": ({"noise": 2e-3}, "frontend"),
+    "rv": ({"rv": 2}, "both"),
+    "CQI bits": ({"ues": ((12, 1, 4, 4968, 0, 6), UL_UES[1])}, "both"),
+    "CQI repetition": ({"cqi_rep": 3}, "both"),
+    "ACK symbols": ({"ack_syms": 8}, "both"),
+    "allocation": ({"ues": ((12, 0, 4, 4968, 0, 4), UL_UES[1])}, "both"),
+    "batch": ({"batch": 3}, "both"),
+}
+
+
+@pytest.mark.parametrize("change", list(UL_CHANGES))
+def test_uplink_key_holds_what_the_launches_read(card_keys, change):
+    """Another cyclic shift or noise changes the front end's key; another
+    rv, UCI layout, allocation or batch shape both, since the front end keys
+    on the whole receive."""
+    over = dict(UL_CHANGES[change][0])
+    batch, noise = over.pop("batch", 2), over.pop("noise", 1e-3)
+    base, _ = card_keys(lambda: _ul_rx().dematch(_ul_iq(), 1e-3))
+    other, _ = card_keys(lambda: _ul_rx(**over).dematch(_ul_iq(batch), noise))
+    assert [k[0] for k in other] == {"frontend": ["pusch.frontend"],
+                                     "both": ["pusch.frontend", "pusch.demap_dematch"]}[
+        UL_CHANGES[change][1]]
+    assert not set(other) & set(base)
+
+
+def _old_dematch(codec, syms, nv):
+    """(per-block softbuffers, UCI LLRs): ``_dematch`` with each K-group
+    split into its blocks, as it was before the graphs."""
+    groups, llrs = codec._dematch(syms, nv)
+    return [b for g in groups for b in g.unbind(-2)], llrs
+
+
+def _old_ul_codec(codec, iq, noise_var, cs):
+    """``PuschCodec.dematch_sf`` as it was before its graphs."""
+    syms, nv = pusch._equalize([codec], ofdm.demodulate(codec.cell, iq), noise_var, [cs])[0]
+    return [_old_dematch(codec, syms, nv)]
+
+
+def _old_ul_cell(rx, iq, noise_var):
+    """``PuschCell.dematch`` as it was before its graphs."""
+    eq = pusch._equalize(rx.codecs, ofdm.demodulate(rx.cell, iq), noise_var, rx.cyclic_shifts)
+    return [_old_dematch(c, syms, nv) for c, (syms, nv) in zip(rx.codecs, eq)]
+
+
+@pytest.mark.parametrize("receiver", ["codec", "cell"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_cpu_uplink_runs_the_ops_it_ran_before(cache, receiver, batch):
+    """On the CPU ``PuschCodec.dematch_sf`` and ``PuschCell.dematch`` run the
+    operations they ran before the graphs, in the same order, and give the
+    same softbuffers and UCI LLRs bit for bit; nothing enters the cache."""
+    iq = _ul_iq(batch)[0] if batch == 1 else _ul_iq(batch)
+    rx = _ul_rx()
+    if receiver == "codec":
+        codecs = rx.codecs[:1]
+        new_call = lambda: [codecs[0].dematch_sf(iq, 1e-3, rx.cyclic_shifts[0])]  # noqa: E731
+        old_call = lambda: _old_ul_codec(codecs[0], iq, 1e-3, rx.cyclic_shifts[0])  # noqa: E731
+    else:
+        codecs = rx.codecs
+        new_call, old_call = lambda: rx.dematch(iq, 1e-3), lambda: _old_ul_cell(rx, iq, 1e-3)
+    new_call()  # the DMRS tables cached, as in the old call's steady state
+    new, new_ops = _ops(new_call)
+    new_llrs = [c._last_uci_llrs for c in codecs]
+    old, old_ops = _ops(old_call)
+    assert new_ops == old_ops and len(new_ops) > 20
+    for a, b in zip(_flat([new, new_llrs]), _flat([[o[0] for o in old], [o[1] for o in old]]),
+                    strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert cache == [] and not graphs.GRAPHS.keys
+
+
+@pytest.mark.parametrize("kind,recurred", [("fixed", (0.98, 1.0)), ("drawn", (0.0, 0.05))])
+def test_ul_grant_sequences_recur_as_described(kind, recurred):
+    """``bench_ul_grants``' fixed sequence comes back every 10 TTIs and its
+    drawn one seldom; every grant makes a codec whose UCI fits."""
+    from srsue_tpu_torch import bench_ul_grants as bench
+
+    grants = bench._grants(kind, 500, np.random.default_rng(2**31 + 11))
+    share = bench._recurred(grants)
+    assert recurred[0] <= share <= recurred[1]
+    if kind == "fixed":
+        assert share == (500 - 10) / 500
+    for grant, sf, cqi, ack in grants[:40]:
+        pusch.PuschCodec(bench.CELL, grant, bench.RNTI, sf, n_cqi_bits=cqi, with_ack=ack,
+                         device="cpu")

@@ -160,3 +160,43 @@ def test_cell_refuses_a_bad_layout(bad):
               "shifts": [(6, 1, 2, 600, 1, 0, 0)]}[bad]
     with pytest.raises(ValueError):
         pusch.PuschCell(CELL, _codecs(layout), [0, 0] if bad == "shifts" else [0] * len(layout))
+
+
+def _row_cases():
+    g = torch.arange(2 * 4 * 6, dtype=torch.float32).reshape(2, 4, 6)
+    rows, other = list(g.unbind(-2)), torch.zeros(2, 6)
+    return {  # name -> (blocks, whether they join as a view of g)
+        "a K-group's rows": (rows, True),
+        "consecutive rows of a group": (rows[1:3], True),
+        "one row": (rows[2:3], True),
+        "rows out of order": (rows[::-1], False),
+        "a row twice": ([rows[0], rows[0]], False),
+        "combined buffers": ([r + 0 for r in rows], False),
+        "rows of two tensors": ([rows[3], other], False),
+    }, g
+
+
+@pytest.mark.parametrize("case", list(_row_cases()[0]))
+def test_rows_join_a_k_group_without_a_copy(case):
+    """``_rows`` gives what ``torch.stack(blocks, -2)`` gives; where the blocks
+    are consecutive rows of one tensor (the demap's K-group, split for the
+    caller), a view of it."""
+    cases, g = _row_cases()
+    blocks, view = cases[case]
+    got = pusch._rows(blocks)
+    assert torch.equal(got, torch.stack(blocks, -2))
+    assert (got.untyped_storage().data_ptr() == g.untyped_storage().data_ptr()) is view
+
+
+def test_decode_of_joined_rows_equals_decode_of_copies():
+    """A codec's softbuffers decode alike whether ``_decode`` joins its
+    K-group's rows as a view or stacks copies (as of HARQ-combined
+    buffers)."""
+    layout = [LAYOUTS["12_6_4"][1]]
+    codec = _codecs(layout)[0]
+    iq, nv, _ = _subframes([codec], layout, seed=11)
+    bufs = codec.dematch_sf(iq, nv, layout[0][5])
+    got = codec.decode_softbuffers(bufs)
+    for a, b in zip(got, codec.decode_softbuffers([b.clone() for b in bufs]), strict=True):
+        assert torch.equal(a, b)
+    assert got[1].all()

@@ -300,17 +300,17 @@ PUSCH_PARENT = {"pusch.frontend": None, "pusch.idft_group": "pusch.frontend",
                 "turbo.exit_check": "pusch.k_group", "pusch.uci": None}
 
 
-def _pusch_step():
+def _pusch_step(device="cpu"):
     """An eNB's step on two uplink subframes at 20 dB: dematch, decode, each
     subframe's UCI."""
     cell = Cell(n_prb=6, cell_id=42)
     grant = UlGrant(n_prb=6, prb_start=0, mcs=20, mod_order=4, tbs=2600)
-    codec = pusch.PuschCodec(cell, grant, 0x1234, 2, n_cqi_bits=4, with_ack=True, device="cpu")
+    codec = pusch.PuschCodec(cell, grant, 0x1234, 2, n_cqi_bits=4, with_ack=True, device=device)
     rng = np.random.default_rng(7)
     wave = np.stack([codec.encode_sf_uci(rng.integers(0, 2, grant.tbs).astype(np.uint8),
                                          cqi_bits=np.array([1, 0, 0, 1], np.uint8), ack=a)
                      for a in (True, False)])
-    iq = torch.as_tensor(enb_tx.awgn(rng, wave, 20.0)[0])
+    iq = torch.as_tensor(enb_tx.awgn(rng, wave, 20.0)[0], device=device)
 
     def step():
         payload, tb_ok, iters = codec.decode_softbuffers(codec.dematch_sf(iq))
@@ -342,26 +342,31 @@ def test_pusch_span_tree(tmp_path):
 CELL_SPANS = ["pusch.frontend", "pusch.demap_dematch", "pusch.turbo", "pusch.uci"]
 
 
-def test_pusch_cell_span_tree(tmp_path):
-    """One ``pusch.frontend`` holding one ``pusch.idft_group`` per allocation
-    size (2), one ``pusch.turbo`` holding one ``pusch.k_group`` per K (2),
-    the turbo loop's spans inside a K-group, one ``pusch.uci``; in that
-    order, and the results as without a profiler."""
+def _pusch_cell_step(device="cpu"):
+    """``PuschCell``'s step on a 15 PRB cell: dematch, decode, each UE's UCI."""
     cell = Cell(n_prb=15, cell_id=42)
     ues = [(4, 1, 2, 176, 0), (4, 5, 2, 176, 6), (6, 9, 4, 1352, 3)]
     codecs = [pusch.PuschCodec(cell, UlGrant(n, start, 0, qm, tbs), 0x1234 + i, 2,
-                               n_cqi_bits=4 if qm == 4 else 0, with_ack=True, device="cpu")
+                               n_cqi_bits=4 if qm == 4 else 0, with_ack=True, device=device)
               for i, (n, start, qm, tbs, _) in enumerate(ues)]
     rng = np.random.default_rng(3)
     wave = sum(c.encode_sf_uci(rng.integers(0, 2, c.grant.tbs).astype(np.uint8),
                                cqi_bits=np.array([1, 0, 0, 1], np.uint8) if c.n_cqi_bits else None,
                                ack=True, cyclic_shift=ue[4]) for c, ue in zip(codecs, ues))
-    iq = torch.as_tensor(enb_tx.awgn(rng, np.stack([wave] * 2), 20.0)[0])
+    iq = torch.as_tensor(enb_tx.awgn(rng, np.stack([wave] * 2), 20.0)[0], device=device)
     rx = pusch.PuschCell(cell, codecs, [ue[4] for ue in ues])
 
     def step():
         return [v for out in rx.decode(rx.dematch(iq)) for v in out], rx.decode_uci_sf()
+    return step
 
+
+def test_pusch_cell_span_tree(tmp_path):
+    """One ``pusch.frontend`` holding one ``pusch.idft_group`` per allocation
+    size (2), one ``pusch.turbo`` holding one ``pusch.k_group`` per K (2),
+    the turbo loop's spans inside a K-group, one ``pusch.uci``; in that
+    order, and the results as without a profiler."""
+    step = _pusch_cell_step()
     plain = step()
     rec, events = _recorded(step, tmp_path)
     names = [e["name"] for e in events]
@@ -376,6 +381,39 @@ def test_pusch_cell_span_tree(tmp_path):
         assert torch.equal(a, b)
     assert all(bool(ok.all()) for ok in rec[0][1::3])
     assert [bool(ack.all()) for _, ack in rec[1]] == [True] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("receiver", ["codec", "cell"])
+def test_uplink_graph_spans_inside_their_stages(receiver, tmp_path, monkeypatch):
+    """On the card the first step records no ``frontend.*`` span; the second
+    captures and replays each uplink stage, one ``frontend.graph_capture``
+    and one ``frontend.graph_replay`` inside ``pusch.frontend`` and inside
+    ``pusch.demap_dematch``; the third only replays; every step's results
+    are the first's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache())
+    step = (_pusch_step if receiver == "codec" else _pusch_cell_step)("cuda")
+    got, stages = [], []
+    for i in range(3):
+        out, events = _recorded(step, tmp_path / str(i))
+        got.append(out)
+        ours = [e for e in events if e["name"].startswith("frontend.")]
+        stages.append(sorted((_parent(e, events), e["name"]) for e in ours))
+    both = ["pusch.demap_dematch", "pusch.frontend"]
+    assert stages == [[], [(s, n) for s in both
+                           for n in ("frontend.graph_capture", "frontend.graph_replay")],
+                      [(s, "frontend.graph_replay") for s in both]]
+    flat = [_tensors(out) for out in got]
+    for later in flat[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(later, flat[0], strict=True))
+
+
+def _tensors(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for v in out if v is not None for t in _tensors(v)]
 
 
 def test_pusch_spans_record_nothing_without_a_profiler(monkeypatch):

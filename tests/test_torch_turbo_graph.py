@@ -115,19 +115,26 @@ def test_hoisted_tail_betas_bit_exact(k, snrs_db, early_exit):
     assert len(set(got[1].tolist())) > 1
 
 
+class _NoGraph:
+    def replay(self):
+        pass
+
+
 def test_capture_lists_launches_that_replays_count(monkeypatch):
-    """Inside ``bcjr.capturing`` the wrappers' calls count nothing and are
-    listed; each ``count_replayed`` of the list counts them again."""
+    """Inside a capture (``graphs.listing``) the wrappers' calls count
+    nothing and are listed; each ``graphs.replay`` of the list counts them
+    again."""
     monkeypatch.setattr(bcjr, "launches", dict.fromkeys(bcjr.launches, 0))
     monkeypatch.setattr(bcjr, "shapes", {name: set() for name in bcjr.launches})
-    with bcjr.capturing() as calls:
+    with graphs.listing() as calls:
         bcjr._count("r2max", (6, 64))
         bcjr._count("r2max", (6, 64))
         bcjr._count("fused", (3, 48))
-    assert calls == [("r2max", (6, 64)), ("r2max", (6, 64)), ("fused", (3, 48))]
+    assert [call for _, call in calls] == [("r2max", (6, 64)), ("r2max", (6, 64)),
+                                           ("fused", (3, 48))]
     assert not any(bcjr.launches.values()) and not any(bcjr.shapes.values())
     for _ in range(3):
-        bcjr.count_replayed(calls)
+        graphs.replay(_NoGraph(), calls)
     assert bcjr.launches == {**dict.fromkeys(bcjr.launches, 0), "r2max": 6, "fused": 3}
     assert bcjr.shapes["r2max"] == {(6, 64)} and bcjr.shapes["fused"] == {(3, 48)}
     bcjr._count("v4", (2, 64))  # outside a capture: counted at once
@@ -250,10 +257,13 @@ def test_shapes_share_the_pool(cuda_device, monkeypatch):
 
 def test_cache_captures_a_shape_that_comes_back_within_size(monkeypatch):
     """The cache's policy, with a stand-in for the capture: a key's first
-    call runs eagerly, a key held without graphs captures, a key holding
-    them replays, and a key that comes back after more than ``SIZE``
-    others runs eagerly again; a capture takes a fresh pool once every
-    graph of the last one has been dropped."""
+    call runs eagerly, a waiting key (held without graphs) captures, a key
+    holding them replays. Past ``SIZE`` waiting keys of a caller its least
+    recently seen goes, so a key that comes back after more than ``SIZE``
+    others of its caller runs eagerly again, and keys seen once drop no
+    graphs and no other caller's waiting keys; past ``SIZE`` keys holding
+    graphs a capture drops the least recently used. A capture takes a fresh
+    pool once every graph of the last one has been dropped."""
     dev = torch.device("cpu")
 
     class Fake:
@@ -267,14 +277,21 @@ def test_cache_captures_a_shape_that_comes_back_within_size(monkeypatch):
     cache = graphs.GraphCache()
     cache.SIZE = 3
     held, outcomes = {}, []
-    for key in (1, 1, 1, 2, 3, 4, 1, 1, 2, 2, 2):
+    for key in [("c", k) for k in (1, 1, 1, 2, 3, 4, 5, 1, 2, 2, 6, 6, 7, 1, 8, 8, 2)] + [
+            ("d", k) for k in range(5)] + [("c", 7)]:
         got = cache.get(key, dev, Fake)
         outcomes.append("eager" if got is None else "replay" if got is held.get(key) else
                         f"capture into {got.pool}")
         held[key] = got
-    assert outcomes == ["eager", "capture into 1", "replay", "eager", "eager", "eager", "eager",
-                        "capture into 2", "eager", "capture into 2", "replay"]
-    assert list(cache.keys) == [4, 1, 2]
+    assert outcomes == [
+        "eager", "capture into 1", "replay", "eager", "eager", "eager", "eager", "replay",
+        "eager", "capture into 1", "eager", "capture into 1", "eager", "replay", "eager",
+        "capture into 1", "eager"] + ["eager"] * 5 + ["capture into 1"]
+    assert [k for k, g in cache.keys.items() if g is not None] == [("c", 1), ("c", 8), ("c", 7)]
+    assert list(cache.waiting["c"]) == [("c", 5), ("c", 2)]
+    assert list(cache.waiting["d"]) == [("d", 2), ("d", 3), ("d", 4)]
+    cache.keys.clear()  # every graph dropped
+    assert [cache.get(("c", 9), dev, Fake), cache.get(("c", 9), dev, Fake).pool] == [None, 2]
 
 
 def test_cache_holds_graphs_within_a_share_of_memory(monkeypatch):
